@@ -1,0 +1,134 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX, so it also runs where jax is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX.)  Inputs come from
+numpy seeds; tolerance: none (integers).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_ec_torch.curves import BLS12_381_G1, PointOps
+from tpu_ec_torch.fields import params as tfp
+from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
+from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
+from tpu_ec_torch.kernels.point import point_op, point_op_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _field(spec, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 16, (n, spec.n_limbs), dtype=np.int64)
+    a[:, -1] = rng.integers(0, int(spec.p_limbs[-1]), n)  # < p
+    a[:2] = 0
+    a[1, 0] = 1
+    a[2] = [((spec.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(spec.n_limbs)]
+    return a
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_381_FQ", "BN254_FR", "BN254_FQ"])
+def test_mont_kernel_matches_plain(cuda, name):
+    spec = getattr(tfp, name)
+    a = torch.as_tensor(_field(spec, 4099, 1)).to(cuda, torch.int32)
+    b = torch.as_tensor(_field(spec, 4099, 2)[::-1].copy()).to(cuda, torch.int32)
+    assert torch.equal(mont_mul(spec, a, b), mont_mul_plain(spec, a, b))
+    one = b[1]  # broadcast operand: the from_mont shape
+    assert torch.equal(mont_mul(spec, a, one), mont_mul_plain(spec, a, one))
+
+
+@pytest.mark.parametrize("canonical,const_t", [(False, False), (True, True), (True, False)])
+def test_inter_kernel_matches_plain(cuda, canonical, const_t):
+    spec = tfp.BLS12_381_FR
+    rng = np.random.default_rng(3)
+    n = 3001
+    cols = torch.as_tensor(rng.integers(0, (1 << 7) * 37 * 127 * 127, (37, n))).to(cuda, torch.int32)
+    t = _field(spec, n, 4).T.copy()
+    t16 = torch.as_tensor(t[:, 7] if const_t else t).to(cuda, torch.int32).contiguous()
+    kw = dict(canonical=canonical, const_t=const_t)
+    assert torch.equal(inter_twiddle(spec, cols, t16, **kw), inter_twiddle_plain(spec, cols, t16, **kw))
+
+
+def _points(ops, n):
+    """k*G for k = 1..n (affine), and Jacobian forms with z != 1."""
+    g = ops.from_affine_ints([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    acc = [ops.to_jacobian(g)]
+    for _ in range(n - 1):
+        acc.append(ops.add_mixed(acc[-1], g))
+    jac = tuple(torch.cat(c) for c in zip(*acc))
+    return ops.to_affine(jac), ops.double(jac)
+
+
+def test_point_kernel_matches_plain(cuda):
+    ops = PointOps(BLS12_381_G1, cuda)
+    A, P = _points(ops, 40)
+    A2, Q = _points(ops, 41)
+    A2 = tuple(c[1:].clone() for c in A2)
+    Q = tuple(c[1:].clone() for c in Q)
+    for c in P:
+        c[0] = 0  # identity
+    for c in Q:
+        c[1] = 0
+    for c in A2:
+        c[1] = 0
+    for k in range(3):
+        Q[k][2] = P[k][2]  # P == Q
+    for k in range(2):
+        A2[k][2] = ops.to_affine(tuple(c[2:3] for c in P))[k][0]  # A == P
+    Q[1][3] = ops.F.neg(P[1][3:4])[0]  # P == -Q
+    Q[0][3], Q[2][3] = P[0][3], P[2][3]
+    spec = BLS12_381_G1.base
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A2]), ("double", [*P])):
+        got, want = point_op(spec, op, ins), point_op_plain(spec, op, ins)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), op
+
+
+def test_point_kernel_row_strides(cuda):
+    """Column slices of one fused row matrix (the MSM's layout) give the
+    same result as contiguous coordinates."""
+    ops = PointOps(BLS12_381_G1, cuda)
+    _, P = _points(ops, 16)
+    fused = torch.cat(P, dim=1)  # (16, 72)
+    views = [fused[:, i * 24 : (i + 1) * 24] for i in range(3)]
+    got = point_op(BLS12_381_G1.base, "double", views)
+    want = point_op(BLS12_381_G1.base, "double", [v.contiguous() for v in views])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_commit_matches_native(cuda):
+    from tpu_ec_torch.native import native_curve, native_field
+    from tpu_ec_torch.ops.pipeline import CommitPipeline
+
+    n = 1 << 12
+    nc, nfr = native_curve(BLS12_381_G1), native_field(BLS12_381_G1.scalar)
+    rng = np.random.default_rng(5)
+    ks = np.zeros((n, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    G = nc.affine_from_points([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    aff = nc.to_affine(nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks))
+    w = nc.w
+    bases = tuple(
+        torch.as_tensor(nc.fq.to_halflimbs(aff[:, i * w : (i + 1) * w]).astype(np.int64)).to(cuda, torch.int32)
+        for i in range(2)
+    )
+    coeffs = _field(BLS12_381_G1.scalar, n, 6)
+    evals, commit = CommitPipeline(BLS12_381_G1, cuda).commit(torch.as_tensor(coeffs).to(cuda, torch.int32), bases)
+    want_evals = nfr.ntt(nfr.from_halflimbs(coeffs.astype(np.uint64)))
+    assert np.array_equal(nfr.from_halflimbs(evals.cpu().numpy().astype(np.uint64)), want_evals)
+    x, y = PointOps(BLS12_381_G1, cuda).to_affine(commit)
+    got = np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in (x, y)], axis=1)
+    want = nc.to_affine(nc.msm(aff, nfr.from_mont(want_evals))[None, :])
+    assert np.array_equal(got, want)

@@ -1,0 +1,80 @@
+"""Port point ops (kernel K3's plain version) against tpu_ec's PointOps.
+
+Random BLS12-381 G1 points from the bigint oracle, with identity, P == Q
+and P == -Q rows mixed in, go through tpu_ec's PointOps (jnp; its Pallas
+kernels are proven bit-identical to it in tests/test_pallas_point.py) and
+the port's PointOps on the CPU.  Jacobian coordinates must be equal bit for
+bit, not merely the same points.  Tolerance: none (integers).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs in several worker processes
+
+import numpy as np
+
+from tpu_ec.curves import oracle
+from tpu_ec.curves.params import BLS12_381_G1 as J_G1
+from tpu_ec.curves.point import point_ops as j_point_ops
+from tpu_ec_torch.convert import points_to_numpy, points_to_torch
+from tpu_ec_torch.curves import BLS12_381_G1, PointOps
+from tpu_ec_torch.errors import DeviceError
+from tpu_ec_torch.kernels.point import point_op
+
+
+@pytest.fixture(scope="module")
+def batch():
+    jops = j_point_ops(J_G1)
+    n = 24
+    pts = oracle.random_points(J_G1, n, seed=20)
+    qts = oracle.random_points(J_G1, n, seed=21)
+    pts[0] = None  # P = identity
+    qts[1] = None  # Q = identity
+    pts[2] = qts[2]  # P == Q
+    qts[3] = oracle.neg(J_G1, pts[3])  # P == -Q
+    pts[4] = qts[4] = None  # both identity
+    A1 = jops.from_affine_ints(pts)
+    A2 = jops.from_affine_ints(qts)
+    P = jops.add_mixed(jops.double(jops.to_jacobian(A1)), A1)  # z != 1
+    Q = jops.to_jacobian(A2)
+    P2 = jops.add_mixed(jops.double(jops.to_jacobian(A2)), A2)  # Q's point, other z
+    return jops, PointOps(BLS12_381_G1), [tuple(map(np.asarray, t)) for t in (P, Q, A2, P2)]
+
+
+def _same(got, want):
+    return all(np.array_equal(g, np.asarray(w)) for g, w in zip(points_to_numpy(got), want))
+
+
+def test_add(batch):
+    jops, tops, (P, Q, _, P2) = batch
+    assert _same(tops.add(points_to_torch(P), points_to_torch(Q)), jops.add(P, Q))
+    # P == Q with different Jacobian representations takes the doubling
+    assert _same(tops.add(points_to_torch(Q), points_to_torch(P2)), jops.add(Q, P2))
+
+
+def test_add_mixed(batch):
+    jops, tops, (P, _, A2, _) = batch
+    assert _same(tops.add_mixed(points_to_torch(P), points_to_torch(A2)), jops.add_mixed(P, A2))
+
+
+def test_double(batch):
+    jops, tops, (P, _, _, _) = batch
+    assert _same(tops.double(points_to_torch(P)), jops.double(P))
+
+
+def test_to_affine(batch):
+    jops, tops, (P, _, _, _) = batch
+    assert _same(tops.to_affine(points_to_torch(P)), jops.to_affine(P))
+
+
+def test_affine_ints_roundtrip():
+    tops = PointOps(BLS12_381_G1)
+    pts = oracle.random_points(J_G1, 3, seed=5) + [None]
+    assert tops.to_affine_ints(tops.from_affine_ints(pts)) == pts
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    c = torch.zeros((4, 24), dtype=torch.int32, device="meta")
+    with pytest.raises(DeviceError):
+        point_op(BLS12_381_G1.base, "double", [c, c, c])

@@ -1,0 +1,97 @@
+"""Typed configuration for the PyTorch/CUDA port.
+
+One dataclass initialised from ``TPU_EC_TORCH_*`` environment variables.
+
+==========================  ================================  ======================
+field                        env var                           consumed by
+==========================  ================================  ======================
+cache                        TPU_EC_TORCH_CACHE                ops/ntt_digit tables
+cache_dir                    TPU_EC_TORCH_CACHE_DIR            ops/ntt_digit tables
+native_build_dir             TPU_EC_TORCH_BUILD_DIR            native, kernels/build
+ntt_digit_leaf_log           TPU_EC_TORCH_NTT_DIGIT_LEAF_LOG   ops/ntt_digit
+msm_window                   TPU_EC_TORCH_MSM_WINDOW           ops/msm (None = auto)
+msm_hbm_budget_bytes         TPU_EC_TORCH_HBM_BUDGET           ops/msm.calc_chunk_size
+log_level                    TPU_EC_TORCH_LOG                  get_logger
+==========================  ================================  ======================
+
+Everything that is built at run time (the CUDA kernels, the native C++
+library, the digit-NTT tables) lands under one directory,
+``tpu_ec_torch/_build`` unless ``native_build_dir`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _env_int(name: str, default: int | None) -> int | None:
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else default
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v not in ("0", "false", "False", "no")
+
+
+@dataclasses.dataclass
+class Config:
+    """All runtime knobs.  ``Config.from_env()`` is the default instance."""
+
+    # disk cache of the digit-NTT constant tables
+    cache: bool = True
+    cache_dir: str | None = None
+    # where the kernels, the native library and the tables are built
+    native_build_dir: str | None = None
+    # digit-matmul NTT max leaf radix log2; bounded by the int32 accumulator
+    # (m * 37 * 127^2 < 2^31 -> leaf <= 11)
+    ntt_digit_leaf_log: int = 8
+    # MSM window bits; None = analytic model (msm_pair.default_window_size_pair)
+    msm_window: int | None = None
+    # device-memory budget for MSM chunk sizing; None = the free memory the
+    # card reports (torch.cuda.mem_get_info), or 4 GiB on the CPU
+    msm_hbm_budget_bytes: int | None = None
+    log_level: str = "WARNING"
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        return cls(
+            cache=_env_bool("TPU_EC_TORCH_CACHE", True),
+            cache_dir=os.environ.get("TPU_EC_TORCH_CACHE_DIR") or None,
+            native_build_dir=os.environ.get("TPU_EC_TORCH_BUILD_DIR") or None,
+            ntt_digit_leaf_log=_env_int("TPU_EC_TORCH_NTT_DIGIT_LEAF_LOG", 8) or 8,
+            msm_window=_env_int("TPU_EC_TORCH_MSM_WINDOW", None),
+            msm_hbm_budget_bytes=_env_int("TPU_EC_TORCH_HBM_BUDGET", None),
+            log_level=os.environ.get("TPU_EC_TORCH_LOG", "WARNING"),
+        )
+
+    def build_dir(self, *parts: str) -> str:
+        """A directory under the build root, created on first use."""
+        root = self.native_build_dir or os.path.join(_PKG_DIR, "_build")
+        d = os.path.abspath(os.path.join(root, *parts))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+
+_config: Config | None = None
+
+
+def get_config() -> Config:
+    """The process-wide config (lazily initialised from the environment)."""
+    global _config
+    if _config is None:
+        _config = Config.from_env()
+    return _config
+
+
+def get_logger(name: str) -> logging.Logger:
+    """A library logger at the configured level."""
+    log = logging.getLogger(name)
+    log.setLevel(get_config().log_level.upper())
+    return log

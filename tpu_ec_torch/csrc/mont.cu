@@ -1,0 +1,56 @@
+// K1: batched Montgomery product a*b*R^-1 mod p.
+//
+// Replaces tpu_ec/ops/pallas/mont.py:_mont_mul_call and _mont_mul_call_list
+// (entry mont_mul_planes): the same values, canonical (< p), R = 2^(16L).
+//
+// Bound on the H100: integer-ALU.  A 381-bit product is 2*12*12 = 288
+// 32x32->64 multiply-adds plus carries per element, against 3*48 = 144 bytes
+// of traffic, far above the card's ops-per-byte balance.
+//
+// Simple design: one thread per element, the element's words in registers,
+// word-serial CIOS (field.cuh) with 64-bit carry accumulators, then one
+// conditional subtract.  Each thread reads its 2*NW int32 half-limbs
+// directly (strided, not coalesced); PTX carry chains, warp-cooperative
+// products and coalesced staging are later work.
+#include "field.cuh"
+
+namespace {
+
+template <int NW>
+__global__ void mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                                int32_t* __restrict__ out, long long n, long long b_stride,
+                                tec::FieldConsts fc) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  tec::Fe<NW> x = tec::load_fe<NW>(a + i * 2 * NW);
+  tec::Fe<NW> y = tec::load_fe<NW>(b + i * b_stride);
+  tec::store_fe<NW>(out + i * 2 * NW, tec::fe_mul<NW>(x, y, fc));
+}
+
+}  // namespace
+
+// a, out: (n, 2*nw) int32 half-limbs; b: same, or one element when
+// b_stride == 0.  fc: host array [np, p[12], one[12]].  Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int tec_mont_mul(int nw, const void* a, const void* b, void* out, long long n,
+                            long long b_stride, const uint32_t* fc, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  tec::FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) {
+    mont_mul_kernel<8><<<blocks, threads, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                                  (int32_t*)out, n, b_stride, c);
+  } else if (nw == 12) {
+    mont_mul_kernel<12><<<blocks, threads, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                                   (int32_t*)out, n, b_stride, c);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* tec_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,129 @@
+"""Batched short-Weierstrass Jacobian point arithmetic (a = 0 curves, G1).
+
+PyTorch counterpart of ``tpu_ec/curves/point.py``.  Point batches are tuples
+of (..., L) half-limb tensors in Montgomery form:
+
+  affine   (x, y)     with (0, 0) = identity
+  jacobian (x, y, z)  with z = 0  = identity
+
+``add``, ``add_mixed`` and ``double`` go through kernel K3
+(``kernels/point.py``) for every batch size: its plain version on the CPU,
+the CUDA kernel on the card.  ``to_affine`` inverts every z with one
+Montgomery batch inversion (kernel K1 for the products).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..fields.fp import FieldOps
+from ..kernels.point import point_op
+from .params import CurveSpec
+
+
+def _prefix_products(F: FieldOps, a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products along axis 0 (Hillis-Steele, log depth)."""
+    d = 1
+    while d < a.shape[0]:
+        a = torch.cat([a[:d], F.mul(a[d:], a[:-d])], dim=0)
+        d *= 2
+    return a
+
+
+def _batch_inverse(F: FieldOps, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery batch inversion of an (n, L) batch; zeros map to zeros."""
+    iz = F.is_zero(a)
+    one = F.one.expand_as(a)
+    safe = F.select(iz, one, a)
+    pre = _prefix_products(F, safe)
+    suf = _prefix_products(F, safe.flip(0)).flip(0)
+    total_inv = F.inv_(pre[-1:])
+    left = torch.cat([one[:1], pre[:-1]], dim=0)
+    right = torch.cat([suf[1:], one[:1]], dim=0)
+    out = F.mul(F.mul(left, right), total_inv.expand_as(a))
+    return F.select(iz, torch.zeros_like(a), out)
+
+
+class PointOps:
+    """Batched Jacobian group ops bound to one G1 :class:`CurveSpec` and device."""
+
+    def __init__(self, spec: CurveSpec, device="cpu"):
+        if spec.ext != 1:
+            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port")
+        self.spec = spec
+        self.device = torch.device(device)
+        self.fq = FieldOps(spec.base, self.device)
+        self.F = self.fq
+        self.fr = FieldOps(spec.scalar, self.device)
+        self.L = self.fq.L
+
+    # -- constructors / predicates ----------------------------------------
+
+    def identity_jacobian(self, batch_shape=()):
+        z = torch.zeros(tuple(batch_shape) + (self.L,), dtype=self.fq.dtype, device=self.device)
+        return (z, z.clone(), z.clone())
+
+    def is_identity(self, P):
+        return self.F.is_zero(P[2])
+
+    def is_identity_affine(self, A):
+        return self.F.is_zero(A[0]) & self.F.is_zero(A[1])
+
+    def select(self, cond, P, Q):
+        return tuple(self.F.select(cond, p, q) for p, q in zip(P, Q))
+
+    # -- conversions -------------------------------------------------------
+
+    def to_jacobian(self, A):
+        """Affine -> Jacobian; (0, 0) identity -> z = 0."""
+        x, y = A
+        z = self.F.select(
+            self.is_identity_affine(A), torch.zeros_like(x), self.F.one.expand_as(x)
+        )
+        return (x, y, z)
+
+    def to_affine(self, P):
+        """Jacobian -> affine via one batched inversion of z (identity -> (0, 0))."""
+        F = self.F
+        z = P[2].reshape(-1, self.L)
+        zinv = _batch_inverse(F, z).reshape(P[2].shape)
+        zinv2 = F.sqr(zinv)
+        x = F.mul(P[0], zinv2)
+        y = F.mul(P[1], F.mul(zinv, zinv2))
+        ident = self.is_identity(P)
+        return (F.select(ident, torch.zeros_like(x), x), F.select(ident, torch.zeros_like(y), y))
+
+    # -- group ops (kernel K3) ---------------------------------------------
+
+    def double(self, P):
+        """dbl-2009-l; identity-safe (Z3 = 2YZ = 0)."""
+        return point_op(self.spec.base, "double", list(P))
+
+    def add(self, P, Q):
+        """add-2007-bl with select-based completeness."""
+        return point_op(self.spec.base, "add", [*P, *Q])
+
+    def add_mixed(self, P, A):
+        """madd-2007-bl: Jacobian + affine ((0, 0) = identity), the MSM hot op."""
+        return point_op(self.spec.base, "add_mixed", [*P, *A])
+
+    def neg(self, P):
+        return (P[0], self.F.neg(P[1]), P[2])
+
+    # -- host conversion ----------------------------------------------------
+
+    def from_affine_ints(self, points):
+        """Oracle affine points (None = identity) -> (x, y) device batch."""
+        xs = [0 if p is None else p[0] for p in points]
+        ys = [0 if p is None else p[1] for p in points]
+        return (self.fq.from_ints(xs), self.fq.from_ints(ys))
+
+    def to_affine_ints(self, A):
+        """(x, y) affine batch -> list of oracle points (None = identity)."""
+        xs = self.F.to_ints(A[0])
+        ys = self.F.to_ints(A[1])
+        return [None if (x == 0 and y == 0) else (x, y) for x, y in zip(xs, ys)]
+
+    def scalars_to_limbs(self, scalars) -> torch.Tensor:
+        """Plain ints -> (N, Ls) non-Montgomery limbs for MSM digit extraction."""
+        return self.fr.from_ints(list(scalars), mont=False)

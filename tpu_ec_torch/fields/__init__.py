@@ -1,0 +1,29 @@
+"""Prime fields: specs, Montgomery arithmetic, host-side table arithmetic."""
+
+from .fp import FieldOps
+from .params import (
+    ALL_FIELDS,
+    BLS12_381_FQ,
+    BLS12_381_FR,
+    BN254_FQ,
+    BN254_FR,
+    LIMB_BITS,
+    LIMB_MASK,
+    FieldSpec,
+    int_to_limbs,
+    limbs_to_int,
+)
+
+__all__ = [
+    "ALL_FIELDS",
+    "BLS12_381_FQ",
+    "BLS12_381_FR",
+    "BN254_FQ",
+    "BN254_FR",
+    "LIMB_BITS",
+    "LIMB_MASK",
+    "FieldOps",
+    "FieldSpec",
+    "int_to_limbs",
+    "limbs_to_int",
+]

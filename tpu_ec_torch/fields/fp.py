@@ -1,0 +1,115 @@
+"""Batched Montgomery prime-field arithmetic on 16-bit half-limbs.
+
+PyTorch counterpart of ``tpu_ec/fields/fp.py``.  A batch of field elements
+is an ``(..., L)`` tensor of little-endian 16-bit half-limbs in Montgomery
+form (R = 2^(16L), arkworks' R), stored as int64 on the CPU and int32 on
+CUDA.  Values are canonical (< p) at every op boundary.
+
+``mul``/``sqr``/``to_mont``/``from_mont`` go through kernel K1
+(``kernels/mont.py``): its plain version on the CPU, the CUDA kernel on the
+card.  The rest are plain tensor ops on either device, as ``tpu_ec``
+computes them in jnp too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.mont import mont_mul
+from .limbs import add_plain, storage_dtype, sub_borrow, sub_plain
+from .params import FieldSpec, int_to_limbs, limbs_to_int
+
+
+class FieldOps:
+    """Batched field ops bound to one :class:`FieldSpec` and one device."""
+
+    def __init__(self, spec: FieldSpec, device="cpu"):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.dtype = storage_dtype(self.device)
+        self.L = spec.n_limbs
+        self.p = self._t(spec.p_limbs)
+        self.one = self._t(spec.one_limbs)  # Montgomery 1
+        self.r2 = self._t(spec.r2_limbs)
+        self.unit = self._t(int_to_limbs(1, self.L))  # plain 1, for from_mont
+
+    def _t(self, limbs) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(limbs, np.int64), device=self.device).to(self.dtype)
+
+    def constant(self, value: int, mont: bool = True) -> torch.Tensor:
+        """A Python-int field element as an (L,) limb tensor on the device."""
+        v = self.spec.to_mont(value % self.spec.modulus) if mont else value
+        return self._t(int_to_limbs(v, self.L))
+
+    # -- predicates --------------------------------------------------------
+
+    def eq(self, a, b):
+        return (a == b).all(dim=-1)
+
+    def is_zero(self, a):
+        return (a == 0).all(dim=-1)
+
+    def select(self, cond, a, b):
+        """Elementwise select; ``cond`` has the batch shape (no limb axis)."""
+        return torch.where(cond.unsqueeze(-1), a, b)
+
+    # -- ring ops ----------------------------------------------------------
+
+    def add(self, a, b):
+        return add_plain(self.spec, a.to(torch.int64), b.to(torch.int64)).to(self.dtype)
+
+    def sub(self, a, b):
+        return sub_plain(self.spec, a.to(torch.int64), b.to(torch.int64)).to(self.dtype)
+
+    def neg(self, a):
+        a64 = a.to(torch.int64)
+        d, _ = sub_borrow(self.p.to(torch.int64).expand_as(a64), a64)
+        return torch.where(self.is_zero(a).unsqueeze(-1), a64, d).to(self.dtype)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def mul(self, a, b):
+        """Montgomery product a*b*R^-1 mod p (kernel K1)."""
+        if b.shape != a.shape and b.dim() > 1:
+            b = b.expand_as(a).contiguous()
+        return mont_mul(self.spec, a.contiguous(), b.contiguous())
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def to_mont(self, a):
+        return self.mul(a, self.r2)
+
+    def from_mont(self, a):
+        return self.mul(a, self.unit)
+
+    def pow(self, base, exponent: int):
+        """base^exponent with one shared Python-int exponent, MSB first."""
+        acc = self.one.expand_as(base).contiguous()
+        for bit in bin(exponent)[2:]:
+            acc = self.sqr(acc)
+            if bit == "1":
+                acc = self.mul(acc, base)
+        return acc
+
+    def inv_(self, a):
+        """Field inverse via Fermat (a^(p-2)); in-domain for Montgomery reps."""
+        return self.pow(a, self.spec.modulus - 2)
+
+    # -- host conversion ---------------------------------------------------
+
+    def from_ints(self, values, mont: bool = True) -> torch.Tensor:
+        """Python ints -> (N, L) limb tensor on the device."""
+        arr = np.zeros((len(values), self.L), dtype=np.int64)
+        for i, v in enumerate(values):
+            v %= self.spec.modulus
+            arr[i] = int_to_limbs(self.spec.to_mont(v) if mont else v, self.L)
+        return torch.as_tensor(arr, device=self.device).to(self.dtype)
+
+    def to_ints(self, a: torch.Tensor, mont: bool = True) -> list:
+        """(..., L) limb tensor -> list of Python ints."""
+        arr = a.detach().to("cpu", torch.int64).reshape(-1, self.L).numpy()
+        out = [limbs_to_int(r) for r in arr]
+        return [self.spec.from_mont(v) for v in out] if mont else out

@@ -1,0 +1,145 @@
+"""Build and load the CUDA kernels (csrc/*.cu) as one shared library.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+``.so`` with a plain C interface, loaded with ctypes (no PyTorch headers, so
+the build takes seconds).  The library's file name embeds a hash of the
+sources and flags; it lives in the gitignored build directory
+(``config.build_dir("kernels")``), beside the ``-Xptxas -v`` report of the
+build.  Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..config import get_config
+from ..errors import DeviceError
+from ..fields.params import FieldSpec
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCES = ("mont.cu", "inter.cu", "point.cu")
+HEADERS = ("field.cuh",)
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class Launches:
+    """Launch count of one kernel wrapper: it adds one where it launches its
+    kernel and nowhere else, so a run can show which kernels it went through."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise DeviceError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(get_config().build_dir("kernels"), f"libtec_kernels_{_digest()}.so")
+
+
+def ptxas_report() -> str:
+    """The ``-Xptxas -v`` output of the build (registers, spills per kernel)."""
+    with open(library_path() + ".ptxas.txt") as f:
+        return f.read()
+
+
+def build() -> float:
+    """Compile the library if it is not built yet; returns the seconds taken."""
+    out = library_path()
+    if os.path.exists(out):
+        return 0.0
+    t0 = time.perf_counter()
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise DeviceError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        build()
+        lib = ctypes.CDLL(library_path())
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.tec_mont_mul.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
+        lib.tec_mont_mul.restype = i32
+        lib.tec_inter.argtypes = [vp, i32, vp, i32, vp, i32, i64, vp, vp]
+        lib.tec_inter.restype = i32
+        lib.tec_point.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp]
+        lib.tec_point.restype = i32
+        lib.tec_error_string.argtypes = [i32]
+        lib.tec_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise DeviceError(f"{what}: CUDA error {err} ({lib.tec_error_string(err).decode()})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+_FC: dict = {}
+
+
+def field_consts(spec: FieldSpec):
+    """Host array [n', p words (12), one words (12)] the kernels take."""
+    if spec.name not in _FC:
+        nw = spec.n_limbs // 2
+        words = lambda v: [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)] + [0] * (12 - nw)
+        vals = [spec.inv32] + words(spec.modulus) + words(spec.one)
+        _FC[spec.name] = (ctypes.c_uint32 * len(vals))(*vals)
+    return _FC[spec.name]
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and shape)."""
+    if t.device.type != "cuda":
+        raise DeviceError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise DeviceError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise DeviceError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise DeviceError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,193 @@
+"""K3: batched Jacobian point ops (add, add_mixed, double), and their plain version.
+
+Replaces ``tpu_ec/ops/pallas/point.py::_point_call_list`` / ``_point_call``
+(entries ``jac_add``, ``jac_add_mixed``, ``jac_double``).  The kernel is
+``csrc/point.cu``.  The plain version below evaluates the same formulas with
+the same select tree as ``tpu_ec/ops/pallas/point.py`` (it computes the
+doubling branch only on the rows that select it), so both are bit-identical
+to ``tpu_ec``'s PointOps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..errors import DeviceError
+from ..fields.limbs import add_plain, const_tensor, sub_plain
+from ..fields.params import FieldSpec
+from .build import Launches, check, load, field_consts, stream
+from .mont import mont_mul_plain
+
+LAUNCHES = Launches("point")
+
+OPS = {"add": 0, "add_mixed": 1, "double": 2}
+N_IN = {"add": 6, "add_mixed": 5, "double": 3}
+
+
+class _PlainField:
+    """The field ops the formulas use, on int64 half-limbs, any device."""
+
+    def __init__(self, spec: FieldSpec, device):
+        self.spec = spec
+        self.one = const_tensor(spec.one_limbs, device)
+
+    def add(self, a, b):
+        return add_plain(self.spec, a, b)
+
+    def sub(self, a, b):
+        return sub_plain(self.spec, a, b)
+
+    def mul(self, a, b):
+        return mont_mul_plain(self.spec, a, b)
+
+    def sqr(self, a):
+        return mont_mul_plain(self.spec, a, a)
+
+    def double(self, a):
+        return add_plain(self.spec, a, a)
+
+    @staticmethod
+    def is_zero(a):
+        return (a == 0).all(dim=-1)
+
+    @staticmethod
+    def select(cond, a, b):
+        return torch.where(cond.unsqueeze(-1), a, b)
+
+
+def _double_body(F, X, Y, Z):
+    """dbl-2009-l (ec.cl:17-42); identity-safe (Z3 = 2YZ = 0)."""
+    A = F.sqr(X)
+    B = F.sqr(Y)
+    C = F.sqr(B)
+    D = F.double(F.sub(F.sub(F.sqr(F.add(X, B)), A), C))
+    E = F.add(F.double(A), A)
+    FF = F.sqr(E)
+    X3 = F.sub(FF, F.double(D))
+    eightC = F.double(F.double(F.double(C)))
+    Y3 = F.sub(F.mul(E, F.sub(D, X3)), eightC)
+    Z3 = F.double(F.mul(Y, Z))
+    return X3, Y3, Z3
+
+
+def _double_where(F, cond, X, Y, Z):
+    """dbl-2009-l of the rows where ``cond`` holds, zeros elsewhere: the
+    select tree takes the doubling on those rows only, so the plain version
+    computes it there only."""
+    out = (torch.zeros_like(X), torch.zeros_like(Y), torch.zeros_like(Z))
+    if bool(cond.any()):
+        idx = cond.nonzero(as_tuple=True)
+        for o, d in zip(out, _double_body(F, X[idx], Y[idx], Z[idx])):
+            o[idx] = d
+    return out
+
+
+def _add_body(F, X1, Y1, Z1, X2, Y2, Z2):
+    """add-2007-bl with the select completeness of PointOps.add."""
+    Z1Z1 = F.sqr(Z1)
+    Z2Z2 = F.sqr(Z2)
+    U1 = F.mul(X1, Z2Z2)
+    U2 = F.mul(X2, Z1Z1)
+    S1 = F.mul(Y1, F.mul(Z2, Z2Z2))
+    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    H = F.sub(U2, U1)
+    I = F.sqr(F.double(H))
+    J = F.mul(H, I)
+    rr = F.double(F.sub(S2, S1))
+    V = F.mul(U1, I)
+    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
+    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(S1, J)))
+    Z3 = F.mul(F.sub(F.sub(F.sqr(F.add(Z1, Z2)), Z1Z1), Z2Z2), H)
+    i1, i2 = F.is_zero(Z1), F.is_zero(Z2)
+    same = (~i1) & (~i2) & F.is_zero(H) & F.is_zero(rr)
+    dX, dY, dZ = _double_where(F, same, X1, Y1, Z1)
+    out = []
+    for r, d, a, b in ((X3, dX, X1, X2), (Y3, dY, Y1, Y2), (Z3, dZ, Z1, Z2)):
+        r = F.select(same, d, r)
+        r = F.select(i2, a, r)
+        out.append(F.select(i1, b, r))
+    return tuple(out)
+
+
+def _add_mixed_body(F, X1, Y1, Z1, X2, Y2):
+    """madd-2007-bl (ec.cl:45-82) with select completeness; (X2, Y2) affine,
+    (0, 0) = identity."""
+    Z1Z1 = F.sqr(Z1)
+    U2 = F.mul(X2, Z1Z1)
+    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    H = F.sub(U2, X1)
+    HH = F.sqr(H)
+    I = F.double(F.double(HH))
+    J = F.mul(H, I)
+    rr = F.double(F.sub(S2, Y1))
+    V = F.mul(X1, I)
+    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
+    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(Y1, J)))
+    Z3 = F.sub(F.sub(F.sqr(F.add(Z1, H)), Z1Z1), HH)
+    i1 = F.is_zero(Z1)
+    i2 = F.is_zero(X2) & F.is_zero(Y2)
+    same = (~i1) & (~i2) & F.is_zero(H) & F.is_zero(rr)
+    dX, dY, dZ = _double_where(F, same, X1, Y1, Z1)
+    zq = F.select(i2, torch.zeros_like(Z1), F.one.expand_as(Z1))  # affine -> jacobian z
+    out = []
+    for r, d, a, b in ((X3, dX, X1, X2), (Y3, dY, Y1, Y2), (Z3, dZ, Z1, zq)):
+        r = F.select(same, d, r)
+        r = F.select(i2, a, r)
+        out.append(F.select(i1, b, r))
+    return tuple(out)
+
+
+_BODIES = {"add": _add_body, "add_mixed": _add_mixed_body, "double": _double_body}
+
+
+def point_op_plain(spec: FieldSpec, op: str, coords) -> tuple:
+    """Plain PyTorch version on any device: ``coords`` are the op's inputs
+    as (..., L) tensors; returns (X3, Y3, Z3) in the inputs' dtype."""
+    F = _PlainField(spec, coords[0].device)
+    res = _BODIES[op](F, *(c.to(torch.int64) for c in coords))
+    return tuple(r.to(coords[0].dtype) for r in res)
+
+
+def point_op(spec: FieldSpec, op: str, coords) -> tuple:
+    """One batched group op: ``op`` in add (P, Q Jacobian: 6 coordinates),
+    add_mixed (P Jacobian, A affine: 5) or double (P: 3).
+
+    CPU tensors take the plain version.  On CUDA the coordinates are int32
+    (..., L) tensors of one shape whose last axis is contiguous (row strides
+    are passed to the kernel, so column slices of a fused row matrix need no
+    copy); the kernel computes the op on the current stream."""
+    if len(coords) != N_IN[op]:
+        raise ValueError(f"{op}: expected {N_IN[op]} coordinates, got {len(coords)}")
+    if coords[0].device.type == "cpu":
+        return point_op_plain(spec, op, coords)
+    L = spec.n_limbs
+    shape = coords[0].shape
+    if coords[0].device.type != "cuda":
+        raise DeviceError(f"{op}: expected CPU or CUDA tensors, got {coords[0].device}")
+    if shape[-1] != L:
+        raise ValueError(f"{op}: last axis must be {L} half-limbs, got {tuple(shape)}")
+    flat = []
+    for k, c in enumerate(coords):
+        if c.device != coords[0].device or c.dtype != torch.int32 or c.shape != shape:
+            raise ValueError(
+                f"{op}: coordinate {k} is {c.dtype} {tuple(c.shape)} on {c.device}; "
+                f"expected int32 {tuple(shape)} on {coords[0].device}"
+            )
+        f = c.reshape(-1, L)
+        if f.stride(-1) != 1:
+            f = f.contiguous()
+        flat.append(f)
+    n = flat[0].shape[0]
+    outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    ins = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in flat])
+    strides = (ctypes.c_longlong * 6)(*[f.stride(0) for f in flat])
+    out_ptrs = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
+    lib = load()
+    err = lib.tec_point(
+        OPS[op], L // 2, ins, strides, out_ptrs, L, n, field_consts(spec), stream()
+    )
+    check(lib, err, f"point {op}")
+    LAUNCHES.count += 1
+    return tuple(o.reshape(shape) for o in outs)

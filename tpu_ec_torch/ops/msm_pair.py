@@ -1,0 +1,200 @@
+"""Pair-halving MSM engine (G1).
+
+PyTorch counterpart of ``tpu_ec/ops/msm_pair.py``.  Per window:
+
+  1. sort (|digit|, index) and gather the points into bucket order once, as
+     a fused (n, 2L) row matrix, negating y where the digit is negative;
+  2. pair rounds: view (s, C) as (s/2, 2, C) and pair (2i, 2i+1).  Equal
+     keys merge with one batched point add (kernel K3); a boundary pair
+     keeps its left entry and spills its right entry into a side buffer of
+     at most half + 2 rows (#boundary pairs <= #live runs), packed by a
+     monotone masked gather.  Every round halves the width;
+  3. finish: all spills and the last survivor, stably re-sorted, folded by
+     a strided segmented scan that keeps each run's last entry;
+  4. the unique survivors scatter into a (half + 2)-slot bucket array, then
+     the triangular sum and the Horner window combine.
+
+Where ``tpu_ec`` maps windows with ``vmap``/``lax.map``, every tensor here
+has an explicit leading window axis, so each round is one batched point
+op over all windows.  Sorts are ``torch.sort(stable=True)``
+(``jax.lax.sort_key_val`` is stable), gathers ``index_select``/``gather``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..curves.point import PointOps
+from .msm import SCALAR_BITS, make_digits
+from .msm_sorted import _triangular_sum
+
+SENT = torch.iinfo(torch.int32).max
+
+
+def default_window_size_pair(n: int) -> int:
+    """Analytic cost model of the engine: per window a sort and a gather of
+    n rows, ~n adds, and a bucket tail of ~2*B*log2(B) add lanes; W =
+    ceil(256/w) windows.  The weights are tpu_ec's; they shape the choice
+    only through their ratios."""
+    if n <= 1:
+        return 2
+    best_w, best_cost = 2, float("inf")
+    for w in range(2, 17):
+        W = -(-SCALAR_BITS // w)
+        B = 1 << (w - 1)
+        cost = W * (n * (6.6 + 56 + 70) + 90.0 * B * max(1, int(math.log2(B)) + 1))
+        if cost < best_cost:
+            best_w, best_cost = w, cost
+    return best_w
+
+
+def _fuse(P):
+    return torch.cat(P, dim=-1)
+
+
+def _unfuse(D, L: int, k: int):
+    return tuple(D[..., i * L : (i + 1) * L] for i in range(k))
+
+
+def _gather_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """data (W, s, C), idx (W, c) -> (W, c, C): rows of each window."""
+    return torch.gather(data, 1, idx.unsqueeze(-1).expand(idx.shape + (data.shape[-1],)))
+
+
+def _masked_monotone_pack(keys, data, mask, cap: int):
+    """Per window, pack the rows of data (W, s, C) where mask is set into a
+    (W, cap, C) buffer, keeping order.  Rows beyond cap are dropped: callers
+    size cap to the proven bound.  Empty slots hold (SENT, 0)."""
+    s = keys.shape[1]
+    iota = torch.arange(s, device=keys.device, dtype=torch.int64)
+    slot = torch.where(mask, iota, s)
+    order = torch.sort(slot, dim=1).values[:, :cap]
+    valid = order < s
+    safe = order.clamp(max=s - 1)
+    pk = torch.where(valid, torch.gather(keys, 1, safe), SENT)
+    pd = torch.where(valid.unsqueeze(-1), _gather_rows(data, safe), 0)
+    return pk, pd
+
+
+def _pair_round(ops: PointOps, key, data, *, affine: bool, spill_cap: int):
+    """One halving round: (W, s) keys + (W, s, C) fused rows -> (W, s/2)
+    + spill.  Equal-key pairs merge (one batched add); boundary pairs keep
+    left and spill right.  The new rows are always Jacobian (3L columns)."""
+    L = ops.L
+    W, s = key.shape
+    kp = key.reshape(W, s // 2, 2)
+    ke, ko = kp[..., 0], kp[..., 1]
+    dp = data.reshape(W, s // 2, 2, data.shape[-1])
+    A, B = dp[:, :, 0], dp[:, :, 1]
+    same = ke == ko
+    if affine:
+        Aj = ops.to_jacobian(_unfuse(A, L, 2))
+        merged = ops.add_mixed(Aj, _unfuse(B, L, 2))
+        Afull = _fuse(Aj)
+    else:
+        merged = ops.add(_unfuse(A, L, 3), _unfuse(B, L, 3))
+        Afull = A
+    out = torch.where(same.unsqueeze(-1), _fuse(merged), Afull)
+    sk, sd = _masked_monotone_pack(ko, B, (~same) & (ko != SENT), spill_cap)
+    return ke, out, sk, sd
+
+
+def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
+    """Strided segmented scan: after sorting, residual runs are short
+    (<= 2^max_run_log); log-depth shifted adds fold each run into its LAST
+    entry (Hillis-Steele induction).  Returns (key, data) with non-last
+    entries keyed SENT."""
+    L = ops.L
+    for r in range(max_run_log):
+        sh = 1 << r
+        k_sh = torch.cat([torch.full_like(key[:, :sh], SENT), key[:, :-sh]], dim=1)
+        d_sh = torch.cat([torch.zeros_like(data[:, :sh]), data[:, :-sh]], dim=1)
+        m = (key == k_sh) & (key != SENT)
+        added = _fuse(ops.add(_unfuse(data, L, 3), _unfuse(d_sh, L, 3)))
+        data = torch.where(m.unsqueeze(-1), added, data)
+    nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], SENT)], dim=1)
+    is_last = (key != nxt) & (key != SENT)
+    return torch.where(is_last, key, SENT), data
+
+
+def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
+    """Bucket accumulation: returns (W, half + 2, 3L) fused Jacobian buckets
+    (slot 0 = digit-0 dummy, slot half + 1 = overflow; both excluded from
+    the reduction).  ``points`` are affine (x, y) of (n, L); ``scalars`` are
+    (n, Ls + 1) plain limbs, zero-padded by one limb."""
+    if ops.spec.ext != 1:
+        raise NotImplementedError("the pair engine is G1-only")
+    F = ops.F
+    L = ops.L
+    w = window_size
+    num_windows = -(-SCALAR_BITS // w)
+    half = 1 << (w - 1)
+    nbuckets = half + 2
+    n0 = scalars.shape[0]
+    n = 1 << max(1, (n0 - 1).bit_length())
+    dev = scalars.device
+
+    digits = make_digits(scalars, w, num_windows, True)  # (n0, W) int32
+    fused = _fuse(points)  # (n0, 2L)
+    if n != n0:
+        digits = torch.cat([digits, digits.new_zeros((n - n0, num_windows))], dim=0)
+        fused = torch.cat([fused, fused.new_zeros((n - n0, 2 * L))], dim=0)
+    digits_t = digits.T.contiguous()  # (W, n)
+
+    key_s, perm = torch.sort(digits_t.abs(), dim=1, stable=True)
+    # one gather per window from [points; negated points]: row perm + n
+    # holds -P, taken where the digit is negative
+    table = torch.cat([fused, _fuse((fused[:, :L], F.neg(fused[:, L:])))], dim=0)
+    idx = perm + n * torch.gather(digits_t < 0, 1, perm)
+    data = table.index_select(0, idx.reshape(-1)).reshape(num_windows, n, 2 * L)
+
+    k, d = key_s, data
+    spill_cap = half + 2  # spills per round <= #live runs <= half + 1
+    spills = []
+    for r in range(int(math.log2(n))):
+        k, d, sk, sd = _pair_round(
+            ops, k, d, affine=(r == 0), spill_cap=min(k.shape[1] // 2, spill_cap)
+        )
+        if r == 0:
+            # round-1 spills are affine rows: lift to Jacobian, keeping the
+            # identity encoding (z = 0) in empty slots
+            sd = _fuse(ops.to_jacobian(_unfuse(sd, L, 2)))
+            sd = torch.where((sk != SENT).unsqueeze(-1), sd, 0)
+        spills.append((sk, sd))
+
+    # survivors: the one remaining row + all spills; keys repeat at most
+    # (#rounds + 1) times across spill generations
+    fk = torch.cat([k] + [s[0] for s in spills], dim=1)
+    fd = torch.cat([d] + [s[1] for s in spills], dim=1)
+    fk, order = torch.sort(fk, dim=1, stable=True)
+    fd = _gather_rows(fd, order)
+    rounds = int(math.log2(n))
+    fk, fd = _seg_scan_finish(ops, fk, fd, max(1, math.ceil(math.log2(rounds + 2))))
+
+    # unique survivors -> pack -> scatter into buckets
+    pk, pd = _masked_monotone_pack(fk, fd, fk != SENT, nbuckets + 2)
+    slot = torch.where(pk == SENT, nbuckets - 1, pk.clamp(max=nbuckets - 1)).long()
+    buckets = torch.zeros((num_windows, nbuckets, 3 * L), dtype=pd.dtype, device=dev)
+    return buckets.scatter(1, slot.unsqueeze(-1).expand(pd.shape), pd)
+
+
+def horner_combine(ops: PointOps, partials, w: int):
+    """Per-window sums (W, L) coordinates -> the final point, high to low:
+    res = 2^w * res + S_j (multiexp.rs:221-235)."""
+    W = partials[0].shape[0]
+    res = ops.identity_jacobian((1,))
+    for j in range(W):
+        for _ in range(w):
+            res = ops.double(res)
+        res = ops.add(res, tuple(c[W - 1 - j : W - j] for c in partials))
+    return res
+
+
+def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
+    """One full MSM -> Jacobian point with batch shape (1,)."""
+    w = window_size
+    buckets = msm_pair_buckets(ops, points, scalars, window_size=w)
+    partials = _triangular_sum(ops, _unfuse(buckets, ops.L, 3), 1 << (w - 1))
+    return horner_combine(ops, partials, w)

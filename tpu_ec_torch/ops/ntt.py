@@ -1,0 +1,171 @@
+"""Number-theoretic transform (finite-field FFT) over two-adic fields.
+
+PyTorch counterpart of ``tpu_ec/ops/ntt.py``.  Conventions match
+``ark_poly::Radix2EvaluationDomain``: natural order in and out,
+X_k = sum_j x_j w^(jk), w = root_of_unity^(2^(s - log_n)); the inverse
+transform scales by n^-1.
+
+Routing is by size alone, on every device: log_n > 9 runs the digit-matmul
+NTT (``ops/ntt_digit.py``: int8 leaf GEMMs and kernel K2), smaller
+transforms the constant-geometry Pease loop below (kernel K1 for its
+products).  ``tpu_ec`` routes on the backend instead; the two routes are
+bit-exact equal, so the CPU tests walk the path the card walks.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..errors import Aborted
+from ..fields.fp import FieldOps
+from ..fields.params import FieldSpec, int_to_limbs
+
+MAX_LOG2_FFT = 32
+DIGIT_MIN_LOG = 10  # log_n at and above which the digit-matmul NTT runs
+
+
+def twiddle_table_np(spec: FieldSpec, omega: int, log_len: int) -> np.ndarray:
+    """(2^log_len, L) numpy table of omega^j in Montgomery form."""
+    from ..fields.bigint import np_mont_mul
+
+    table = int_to_limbs(spec.one, spec.n_limbs)[None, :].astype(np.uint32)
+    w_pow = omega
+    for _ in range(log_len):
+        scale = int_to_limbs(spec.to_mont(w_pow), spec.n_limbs)
+        table = np.concatenate([table, np_mont_mul(spec, table, scale[None, :])], axis=0)
+        w_pow = (w_pow * w_pow) % spec.modulus
+    return table
+
+
+def bit_reverse_permutation(log_n: int) -> np.ndarray:
+    """Index permutation reversing log_n-bit indices."""
+    n = 1 << log_n
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+class Domain:
+    """Radix-2 evaluation domain of a fixed (field, log_n, direction)."""
+
+    def __init__(self, spec: FieldSpec, log_n: int, inverse: bool = False):
+        if log_n > min(spec.two_adicity, MAX_LOG2_FFT):
+            raise ValueError(
+                f"domain 2^{log_n} exceeds two-adicity {spec.two_adicity} of {spec.name}"
+            )
+        self.spec = spec
+        self.log_n = log_n
+        self.n = 1 << log_n
+        p = spec.modulus
+        omega = pow(spec.root_of_unity, 1 << (spec.two_adicity - log_n), p)
+        if inverse:
+            omega = pow(omega, p - 2, p)
+        self.omega = omega
+        self.inverse = inverse
+        self._rev = bit_reverse_permutation(log_n)
+
+    @functools.cached_property
+    def twiddles(self) -> np.ndarray:
+        """(n/2, L) numpy table of w^j in Montgomery form."""
+        return twiddle_table_np(self.spec, self.omega, self.log_n - 1)
+
+    @functools.cached_property
+    def n_inv(self) -> int:
+        return pow(self.n, -1, self.spec.modulus)
+
+
+@functools.lru_cache(maxsize=64)
+def get_domain(spec: FieldSpec, log_n: int, inverse: bool = False) -> Domain:
+    return Domain(spec, log_n, inverse)
+
+
+def _ntt_impl(f: FieldOps, dom: Domain, x: torch.Tensor) -> torch.Tensor:
+    """Constant-geometry (Pease) decimation-in-frequency radix-2 NTT: every
+    stage butterflies the halves into u = a + b, v = (a - b) * w^e with
+    e = (i >> s) << s, interleaved; natural order in, bit-reversal gather
+    out (``tpu_ec/ops/ntt.py::_ntt_impl``)."""
+    n, log_n = dom.n, dom.log_n
+    if log_n == 0:
+        return x
+    tw_table = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(x.dtype)
+    half_idx = torch.arange(n // 2, device=x.device)
+    y = x
+    for s in range(log_n):
+        a, b = y[: n // 2], y[n // 2 :]
+        tw = tw_table[(half_idx >> s) << s]
+        u = f.add(a, b)
+        v = f.mul(f.sub(a, b), tw)
+        y = torch.stack([u, v], dim=1).reshape(n, f.L)
+    return y[torch.as_tensor(dom._rev.astype(np.int64), device=x.device)]
+
+
+class FftKernel:
+    """Field FFT bound to one field and device (``radix_fft``)."""
+
+    def __init__(self, spec: FieldSpec, device="cpu", maybe_abort=None):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.f = FieldOps(spec, self.device)
+        self.maybe_abort = maybe_abort
+        self._digit_consts = {}
+
+    def _check_abort(self):
+        if self.maybe_abort is not None and self.maybe_abort():
+            raise Aborted("FFT aborted by hook")
+
+    def radix_fft(self, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+        """NTT of an (n, L) Montgomery batch; returns (n, L) canonical values."""
+        n = x.shape[0]
+        log_n = int(n).bit_length() - 1
+        if 1 << log_n != n:
+            raise ValueError("FFT size must be a power of two")
+        self._check_abort()
+        if log_n >= DIGIT_MIN_LOG:
+            from .ntt_digit import digit_consts, digit_ntt_planes, get_digit_domain, leaf_log
+
+            key = (log_n, inverse)
+            if key not in self._digit_consts:
+                dom = get_digit_domain(self.spec, log_n, inverse, leaf_log(log_n))
+                self._digit_consts[key] = digit_consts(dom, self.device)
+            y = digit_ntt_planes(
+                self.spec, x.T.contiguous(), inverse, consts=self._digit_consts[key]
+            )
+            return y.T.contiguous()
+        dom = get_domain(self.spec, log_n, inverse)
+        y = _ntt_impl(self.f, dom, x)
+        if inverse:
+            y = self.f.mul(y, self.f.constant(dom.n_inv))
+        return y
+
+
+def ntt_ref(spec: FieldSpec, values: list[int], inverse: bool = False) -> list[int]:
+    """Python bigint radix-2 NTT oracle (plain integers, natural order)."""
+    n = len(values)
+    log_n = n.bit_length() - 1
+    if 1 << log_n != n:
+        raise ValueError("NTT size must be a power of two")
+    p = spec.modulus
+    omega = pow(spec.root_of_unity, 1 << (spec.two_adicity - log_n), p)
+    if inverse:
+        omega = pow(omega, p - 2, p)
+    a = [values[int(i)] for i in bit_reverse_permutation(log_n)]
+    m = 1
+    while m < n:
+        w_m = pow(omega, n // (2 * m), p)
+        for k in range(0, n, 2 * m):
+            w = 1
+            for j in range(m):
+                t = (a[k + j + m] * w) % p
+                a[k + j + m] = (a[k + j] - t) % p
+                a[k + j] = (a[k + j] + t) % p
+                w = (w * w_m) % p
+        m *= 2
+    if inverse:
+        ninv = pow(n, -1, p)
+        a = [(v * ninv) % p for v in a]
+    return a
