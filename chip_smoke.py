@@ -1,25 +1,45 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpu_ec_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # BLS12-381 G1 commit at n = 2^20
-    python3 chip_smoke.py --log-n 14 # a smaller commit, for a quick check
+    python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20
+    python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check
 
 Phases, each failing the run on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (csrc/, nvcc for sm_90a) and the native C++
-   referee (g++), with the seconds each took and the kernels' register and
-   spill counts from ``-Xptxas -v``;
-3. kernels: K1 (Montgomery product), K2 (digit-NTT twiddle) and K3 (point
-   add / add_mixed / double) against their plain PyTorch versions on the
-   same card tensors, bit-exact, with both times;
-4. the slice: ``CommitPipeline(BLS12_381_G1, device="cuda").commit`` on
-   random Montgomery coefficients and 2^n points k*G, the evaluations
-   checked bit-exact against the native C++ NTT and the commitment against
-   the native C++ Pippenger; launch counts of the main path's run (each
-   kernel must have launched), ms per commit, per-stage split, peak memory;
+2. build: the CUDA kernels (csrc/, one nvcc per source for sm_90a, in
+   parallel) and the native C++ referee (g++), with the seconds each took
+   and the kernels' register and spill counts from ``-Xptxas -v``;
+3. kernels: every kernel against its plain PyTorch version on the same card
+   tensors, bit-exact, with both times and the bound of its work: K1
+   (Montgomery product), K2 (digit-NTT twiddle), K3 (point add / add_mixed
+   / double), K5 (Pease stage, at the stage shape of a 2^9 NTT batch), K4
+   (leaf NTT, at the leaf shapes of the 2^n fused plan), K7 (affine denom
+   and apply) and K6 (co-Z apply), the last three on 2^16 pairs of valid
+   G1 points with identity, P == Q and P == -Q rows (K6 and K7's denom
+   half are held and timed again at the co-Z path's shape in phase 4c);
+4. the main path: ``CommitPipeline(BLS12_381_G1).commit`` on random
+   Montgomery coefficients and 2^n points k*G, the evaluations checked
+   bit-exact against the native C++ NTT and the commitment against the
+   native C++ Pippenger; ms per commit, per-stage split, peak memory;
+4b. the fused NTT: ``FftKernel`` with config ``ntt_impl="fused"`` at 2^n on
+   phase 4's coefficients (leaf 5 and leaf 8), equal to phase 4's
+   evaluations, and its inverse giving the coefficients back; then
+   ``radix_fft_many`` on (2^11, 2^9, 16), K5's path, forward and inverse,
+   against the native NTT on a sample of rows;
+4c. the co-Z MSM: ``multiexp(..., method="coz")`` at 2^n on phase 4's bases
+   and scalars, equal to phase 4's commitment; ms per MSM beside the pair
+   engine's, peak memory; then K7 (denom) and K6 against their plain
+   versions on the operands of the MSM's first round, (W, s, L) column
+   slices of its fused rows, with their times and bounds; then the device
+   time of each hand kernel over one commit and one co-Z MSM
+   (torch.profiler), where the trace has device time;
+4d. ``affine_add_batch`` (K7's apply half) on the phase-3 pairs, against
+   the Jacobian mixed add;
 5. a JSON line of the kernels, the card line again, and the result line.
 
+Every path runs with the launch counters set to 0 just before it and read
+just after; each kernel must have launched on the path that reaches it.
 The script needs the repository (it imports tpu_ec_torch and builds
 native/src/ec_native.cpp); it imports nothing of JAX.  Without a CUDA
 device it exits non-zero before printing any result.
@@ -29,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -36,6 +57,8 @@ import time
 
 SEED = 20240601
 CHUNK = 1 << 18  # rows per call of a plain version (bounds its temporaries)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+IMAD_PER_CLOCK_SM = 64  # 32-bit integer multiply-adds per clock per SM (sm_90)
 
 
 def card_line() -> str:
@@ -44,6 +67,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -61,12 +92,27 @@ def cuda_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def chunked(fn, *arrays, axis: int = 0):
-    """Run a plain version over row chunks of its batched inputs."""
+def cuda_ms_once(fn):
+    """(fn(), device milliseconds of that one call), for a plain version that
+    takes seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def chunked(fn, *arrays, axis: int = 0, rows: int = CHUNK):
+    """Run a plain version over chunks of ``rows`` along ``axis`` of its
+    batched inputs."""
     import torch
 
     n = arrays[0].shape[axis]
-    outs = [fn(*(a.narrow(axis, lo, min(CHUNK, n - lo)) for a in arrays)) for lo in range(0, n, CHUNK)]
+    outs = [fn(*(a.narrow(axis, lo, min(rows, n - lo)) for a in arrays)) for lo in range(0, n, rows)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts, dim=axis) for parts in zip(*outs))
     return torch.cat(outs, dim=axis)
@@ -125,6 +171,62 @@ def coords_from_u64(nc, arr, k: int, device):
     )
 
 
+def affine_to_u64(nc, xy):
+    """Port affine (x, y) with batch (1,) -> the native (1, 2w) u64 layout."""
+    import numpy as np
+
+    return np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in xy], axis=1)
+
+
+# kernel name in the mangled symbol -> label; a tuple is indexed by the op
+# (the second template argument)
+KERNEL_LABELS = (
+    ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
+    ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")),
+    ("ntt_leaf_kernel", "K4 ntt_leaf"), ("pease_stage_kernel", "K5 pease_stage"),
+    ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
+)
+
+
+def kernel_label(name: str) -> str:
+    """Label of a kernel's mangled (ptxas) or demangled (profiler) name."""
+    args = re.findall(r"Li(\d+)E", name)
+    if not args and (m := re.search(r"<([\d, ]+)>", name)):
+        args = [a.strip() for a in m.group(1).split(",")]
+    for key, label in KERNEL_LABELS:
+        if key in name:
+            if isinstance(label, tuple):
+                label, args = label[int(args[1])], args[:1]
+            return f"{label}<{','.join(args)}>" if args else label
+    return name
+
+
+def device_split(fn) -> tuple[dict, float] | None:
+    """One call of ``fn`` under torch.profiler: ({hand-kernel label: [device
+    ms, launches]}, device-busy ms), or None where the trace holds no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split, busy = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        busy += ms
+        label = kernel_label(ev.key)
+        if label != ev.key:
+            label = label.split("<")[0]
+            split.setdefault(label, [0.0, 0])
+            split[label][0] += ms
+            split[label][1] += ev.count
+    return (split, busy) if busy > 0 else None
+
+
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel: registers and spill bytes from ``-Xptxas -v``."""
     lines, name = [], None
@@ -141,21 +243,78 @@ def ptxas_summary(report: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", ln)
         if m and lines and lines[-1][0] == name and len(lines[-1]) == 2:
             lines[-1].append(f"{m.group(1)} regs")
-    short = []
-    for entry in lines:
-        nm = entry[0]
-        for key, label in (("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
-                           ("point_kernel", "K3 point")):
-            if key in nm:
-                tmpl = re.findall(r"ILi(\d+)E", nm)
-                nm = f"{label}<{','.join(tmpl)}>" if tmpl else label
-        short.append(f"{nm}: {', '.join(entry[1:][::-1])}")
-    return short
+    return [f"{kernel_label(e[0])}: {', '.join(e[1:][::-1])}" for e in lines]
+
+
+def mont_imads(nw: int) -> int:
+    """32-bit IMADs of one CIOS Montgomery product of nw words: 2 nw^2 + nw
+    32x32->64 multiply-adds, each a low and a high IMAD."""
+    return 2 * (2 * nw * nw + nw)
+
+
+class Kernels:
+    """What the JSON line reports of each kernel: its source, the TPU kernel
+    it replaces, and this run's measurements and bound."""
+
+    INFO = {
+        "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
+        "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
+        "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
+        "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
+        "coz_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:232"),
+        "affine_denom": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:75"),
+        "affine_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:107"),
+    }
+
+    def __init__(self, imad_rate: float):
+        self.imad_rate = imad_rate
+        self.rows: dict[str, dict] = {}
+        self.launches: dict[str, int] = {}
+
+    def measured(self, name, *, ms, plain_ms, err, nbytes, imads):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = imads / self.imad_rate * 1e3
+        self.rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=max(err, self.rows.get(name, {}).get("max_abs_err", 0)),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+
+    def err(self, name, err):
+        self.rows.setdefault(name, {})
+        self.rows[name]["max_abs_err"] = max(err, self.rows[name].get("max_abs_err", 0))
+
+    def json_line(self) -> str:
+        out = []
+        for name, (src, rep) in self.INFO.items():
+            r = self.rows[name]
+            out.append({
+                "name": name, "route": "cuda", "source": f"tpu_ec_torch/{src}", "replaces": rep,
+                "launches": self.launches[name], "max_abs_err": r["max_abs_err"],
+                "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            })
+        return json.dumps({"kernels": out})
+
+
+def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn):
+    """Run one path with the launch counters set to 0 just before it and
+    read just after; the kernels it owns must each have launched."""
+    kernels_mod.reset_launch_counters()
+    out = fn()
+    launches = kernels_mod.launch_counters()
+    print(f"{label} launches: { {k: v for k, v in launches.items() if v} }", flush=True)
+    missing = [k for k in owned if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"{label} launched no {missing}")
+    for k in owned:
+        report.launches[k] = launches[k]
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--log-n", type=int, default=20, help="commit size 2^log_n (default 20)")
+    ap.add_argument("--log-n", type=int, default=20, help="input size 2^log_n (default 20)")
     args = ap.parse_args()
 
     import torch
@@ -166,27 +325,42 @@ def main() -> int:
     import numpy as np
 
     from tpu_ec_torch import kernels
+    from tpu_ec_torch.config import get_config
     from tpu_ec_torch.curves.params import BLS12_381_G1
+    from tpu_ec_torch.fields.limbs import sub_borrow
     from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR
+    from tpu_ec_torch.kernels import affine as kaff
     from tpu_ec_torch.kernels import build
+    from tpu_ec_torch.kernels.butterfly import pease_stage, pease_stage_plain
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
+    from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
     from tpu_ec_torch.kernels.point import point_op, point_op_plain
     from tpu_ec_torch.native import native_curve, native_field
+    from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
+    from tpu_ec_torch.ops.msm_coz import _bucket_rows, _pair_up, default_window_size_coz
+    from tpu_ec_torch.ops.msm_sorted import _plan_sizes
+    from tpu_ec_torch.ops.ntt import FftKernel, get_domain
     from tpu_ec_torch.ops.ntt_digit import digit_consts, get_digit_domain, leaf_log
+    from tpu_ec_torch.ops.ntt_fused import fused_consts, get_fused_domain
     from tpu_ec_torch.ops.pipeline import CommitPipeline
     from tpu_ec_torch.utils.measure import timeit
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     n = 1 << args.log_n
-    timings: dict[str, tuple[float, float]] = {}
-    errors: dict[str, int] = {}
+    L_fr, L_fq = BLS12_381_FR.n_limbs, BLS12_381_FQ.n_limbs
 
     # 1. device
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    imad_rate = sms * IMAD_PER_CLOCK_SM * clock
+    report = Kernels(imad_rate)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
+    print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s; IMAD {sms} SMs x {IMAD_PER_CLOCK_SM}/clock x "
+          f"{clock / 1e6:.0f} MHz = {imad_rate / 1e12:.3f} T/s", flush=True)
 
     # 2. build
     t_build = build.build()
@@ -199,40 +373,36 @@ def main() -> int:
     for ln in ptxas_summary(build.ptxas_report()):
         print(f"ptxas: {ln}", flush=True)
 
+    def check(name, label, got, want, k_ms, p_ms, **bound):
+        bad, err = mismatch(got, want)
+        if bound:
+            report.measured(name, ms=k_ms, plain_ms=p_ms, err=err, **bound)
+        else:
+            report.err(name, err)
+        print(f"{label}: mismatches {bad}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+        if bad:
+            raise SystemExit(f"{label}: the kernel disagrees with its plain version on {bad} rows")
+
     # 3. kernels against their plain versions, bit-exact
     for spec in (BLS12_381_FR, BLS12_381_FQ):
         a = torch.as_tensor(random_field(rng, spec, n)).to(dev, torch.int32)
         b = torch.as_tensor(random_field(rng, spec, n)[::-1].copy()).to(dev, torch.int32)
-        got = mont_mul(spec, a, b)
-        want = chunked(lambda x, y: mont_mul_plain(spec, x, y), a, b)
-        bad, err = mismatch(got, want)
-        errors["mont_mul"] = max(errors.get("mont_mul", 0), err)
-        k_ms = cuda_ms(lambda: mont_mul(spec, a, b))
-        p_ms = cuda_ms(lambda: chunked(lambda x, y: mont_mul_plain(spec, x, y), a, b), iters=1)
-        print(f"K1 mont_mul {spec.name} n=2^{args.log_n}: mismatches {bad}, "
-              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-        if bad:
-            raise SystemExit(f"K1 disagrees with its plain version on {bad} rows")
+        plain = lambda: chunked(lambda x, y: mont_mul_plain(spec, x, y), a, b)
+        check("mont_mul", f"K1 mont_mul {spec.name} n=2^{args.log_n}", mont_mul(spec, a, b), plain(),
+              cuda_ms(lambda: mont_mul(spec, a, b)), cuda_ms(plain, iters=1))
     # the main path's K1 shape: from_mont of the 2^n evaluations
-    unit = torch.zeros(16, dtype=torch.int32, device=dev)
+    unit = torch.zeros(L_fr, dtype=torch.int32, device=dev)
     unit[0] = 1
     evals_like = torch.as_tensor(random_field(rng, BLS12_381_FR, n)).to(dev, torch.int32)
-    bad, err = mismatch(
-        mont_mul(BLS12_381_FR, evals_like, unit),
-        chunked(lambda x: mont_mul_plain(BLS12_381_FR, x, unit), evals_like),
-    )
-    timings["mont_mul"] = (
-        cuda_ms(lambda: mont_mul(BLS12_381_FR, evals_like, unit)),
-        cuda_ms(lambda: chunked(lambda x: mont_mul_plain(BLS12_381_FR, x, unit), evals_like), iters=1),
-    )
-    print(f"K1 from_mont shape (2^{args.log_n}, 16) x (16,): mismatches {bad}, "
-          f"kernel {timings['mont_mul'][0]:.3f} ms, plain {timings['mont_mul'][1]:.3f} ms", flush=True)
-    if bad:
-        raise SystemExit("K1 disagrees with its plain version (from_mont shape)")
+    plain = lambda: chunked(lambda x: mont_mul_plain(BLS12_381_FR, x, unit), evals_like)
+    check("mont_mul", f"K1 from_mont shape (2^{args.log_n}, 16) x (16,)",
+          mont_mul(BLS12_381_FR, evals_like, unit), plain(),
+          cuda_ms(lambda: mont_mul(BLS12_381_FR, evals_like, unit)), cuda_ms(plain, iters=1),
+          nbytes=(2 * n + 1) * L_fr * 4, imads=n * mont_imads(L_fr // 2))
 
     dom = get_digit_domain(BLS12_381_FR, args.log_n, False, leaf_log(args.log_n))
     consts = digit_consts(dom, dev)
-    bound = (1 << max(dom.plan)) * dom.d_in * 127 * 127
+    col_bound = (1 << max(dom.plan)) * dom.d_in * 127 * 127
     shapes = []
     log_rest, M = args.log_n, 1
     for lf in dom.plan[:-1]:
@@ -246,39 +416,27 @@ def main() -> int:
     shapes.append((f"final (37, 2^{args.log_n}) x const T -> canonical (16, 2^{args.log_n})",
                    consts["final_c"], True, True))
     for i, (label, t16, canonical, const_t) in enumerate(shapes):
-        cols = torch.as_tensor(rng.integers(0, bound, (37, n), dtype=np.int64)).to(dev, torch.int32)
+        cols = torch.as_tensor(rng.integers(0, col_bound, (37, n), dtype=np.int64)).to(dev, torch.int32)
         kw = dict(canonical=canonical, const_t=const_t)
+        if const_t:
+            plain = lambda: chunked(lambda c: inter_twiddle_plain(BLS12_381_FR, c, t16, **kw), cols, axis=1)
+        else:
+            plain = lambda: chunked(lambda c, t: inter_twiddle_plain(BLS12_381_FR, c, t, **kw),
+                                    cols, t16, axis=1)
         got = inter_twiddle(BLS12_381_FR, cols, t16, **kw)
-        if const_t:
-            want = chunked(lambda c: inter_twiddle_plain(BLS12_381_FR, c, t16, **kw), cols, axis=1)
-        else:
-            want = chunked(lambda c, t: inter_twiddle_plain(BLS12_381_FR, c, t, **kw),
-                           cols, t16, axis=1)
-        bad, err = mismatch(got.T, want.T)
-        errors["inter_twiddle"] = max(errors.get("inter_twiddle", 0), err)
-        k_ms = cuda_ms(lambda: inter_twiddle(BLS12_381_FR, cols, t16, **kw))
-        if const_t:
-            p_ms = cuda_ms(lambda: chunked(
-                lambda c: inter_twiddle_plain(BLS12_381_FR, c, t16, **kw), cols, axis=1), iters=1)
-        else:
-            p_ms = cuda_ms(lambda: chunked(
-                lambda c, t: inter_twiddle_plain(BLS12_381_FR, c, t, **kw), cols, t16, axis=1),
-                iters=1)
-        if i == 0:
-            timings["inter_twiddle"] = (k_ms, p_ms)
-        print(f"K2 inter {label}: mismatches {bad}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
-              flush=True)
-        if bad:
-            raise SystemExit(f"K2 disagrees with its plain version on {bad} columns")
+        # 9 x 8 words of v * T' and of m * p, 9 words of m: 153 multiply-adds
+        bound = dict(nbytes=n * (37 * 4 + 16 * 4 + 37), imads=n * 2 * 153) if i == 0 else {}
+        check("inter_twiddle", f"K2 inter {label}", got.T, plain().T,
+              cuda_ms(lambda: inter_twiddle(BLS12_381_FR, cols, t16, **kw)), cuda_ms(plain, iters=1),
+              **bound)
 
     npts = min(n, 1 << 16)
     jac, aff = random_points(nc, rng, 2 * npts)
-    P = coords_from_u64(nc, jac[:npts], 3, dev)
+    P = [c.clone() for c in coords_from_u64(nc, jac[:npts], 3, dev)]
     Q = [c.clone() for c in coords_from_u64(nc, jac[npts:], 3, dev)]
     A = [c.clone() for c in coords_from_u64(nc, aff[npts:], 2, dev)]
-    PA = coords_from_u64(nc, aff[:npts], 2, dev)
+    PA = [c.clone() for c in coords_from_u64(nc, aff[:npts], 2, dev)]
     p_fq = torch.as_tensor(np.asarray(BLS12_381_FQ.p_limbs, np.int64), device=dev)
-    P = [c.clone() for c in P]
     for c in P:
         c[0] = 0  # row 0: P = identity
     for c in Q:
@@ -291,46 +449,87 @@ def main() -> int:
         A[k][2] = PA[k][2]  # row 2: A == P
     Q[0][3], Q[2][3] = P[0][3], P[2][3]  # row 3: Q == -P
     A[0][3] = PA[0][3]
-    from tpu_ec_torch.fields.limbs import sub_borrow
-
     Q[1][3] = sub_borrow(p_fq, P[1][3].to(torch.int64))[0].to(torch.int32)
     A[1][3] = sub_borrow(p_fq, PA[1][3].to(torch.int64))[0].to(torch.int32)
-    spec_q = BLS12_381_FQ
     for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("double", [*P])):
-        got = point_op(spec_q, op, ins)
-        want = chunked(lambda *c: point_op_plain(spec_q, op, list(c)), *ins)
-        bad, err = mismatch(got, want)
-        errors["point"] = max(errors.get("point", 0), err)
-        k_ms = cuda_ms(lambda: point_op(spec_q, op, ins))
-        p_ms = cuda_ms(lambda: point_op_plain(spec_q, op, ins), iters=1)
+        plain = lambda: chunked(lambda *c: point_op_plain(BLS12_381_FQ, op, list(c)), *ins)
+        bound = {}
         if op == "add_mixed":
-            timings["point"] = (k_ms, p_ms)
-        print(f"K3 {op} n={npts}: mismatches {bad}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
-              flush=True)
-        if bad:
-            raise SystemExit(f"K3 {op} disagrees with its plain version on {bad} rows")
+            # 11 products a row, none where an operand is the identity
+            live = int(((P[2] != 0).any(-1) & ((A[0] != 0) | (A[1] != 0)).any(-1)).sum())
+            bound = dict(nbytes=8 * npts * L_fq * 4, imads=live * 11 * mont_imads(L_fq // 2))
+        check("point", f"K3 {op} n={npts}", point_op(BLS12_381_FQ, op, ins), plain(),
+              cuda_ms(lambda: point_op(BLS12_381_FQ, op, ins)), cuda_ms(plain, iters=1), **bound)
 
-    # 4. the slice: CommitPipeline.commit at n = 2^log_n
+    # K5 at the stage shape of a 2^9 NTT batch (radix_fft_many, phase 4b)
+    nb = max(1, n >> 9)
+    y = torch.as_tensor(random_field(rng, BLS12_381_FR, nb * 512)).to(dev, torch.int32).reshape(nb, 512, L_fr)
+    tw9 = torch.as_tensor(get_domain(BLS12_381_FR, 9).twiddles.astype(np.int64)).to(dev, torch.int32)
+    for s in (0, 8):
+        plain = lambda: chunked(lambda t: pease_stage_plain(BLS12_381_FR, t, tw9, s), y)
+        bound = dict(nbytes=(2 * nb * 512 + 256) * L_fr * 4, imads=nb * 256 * mont_imads(L_fr // 2))
+        check("pease_stage", f"K5 pease_stage ({nb}, 512, 16) stage {s}",
+              pease_stage(BLS12_381_FR, y, tw9, s), plain(),
+              cuda_ms(lambda: pease_stage(BLS12_381_FR, y, tw9, s)), cuda_ms(plain, iters=1),
+              **(bound if s == 0 else {}))
+
+    # K4 at the leaf shapes of the 2^n fused plan (forward tables)
+    fdom = get_fused_domain(BLS12_381_FR, args.log_n, False)
+    ftw = fused_consts(fdom, dev)["leaf"]
+    log_rest, first = args.log_n, True
+    for lf in fdom.plan:
+        m, B = 1 << lf, n >> lf
+        x = torch.as_tensor(random_field(rng, BLS12_381_FR, n)).to(dev, torch.int32).reshape(m, B, L_fr)
+        plain = lambda: chunked(lambda t: ntt_leaf_plain(BLS12_381_FR, t, ftw[lf]), x, axis=1)
+        bound = dict(nbytes=(2 * n + lf * m // 2) * L_fr * 4, imads=B * (m // 2) * lf * mont_imads(L_fr // 2))
+        check("ntt_leaf", f"K4 ntt_leaf ({m}, {B}, 16)", ntt_leaf(BLS12_381_FR, x, ftw[lf]), plain(),
+              cuda_ms(lambda: ntt_leaf(BLS12_381_FR, x, ftw[lf])), cuda_ms(plain, iters=1),
+              **(bound if first else {}))
+        first = False
+
+    # K7 denom and apply, K6, on 2^16 pairs (PA, A): P == Q, P == -Q and
+    # identity rows as above, row 0 P = identity too
+    for c in PA:
+        c[0] = 0
+    x1, y1 = PA
+    x2, y2 = A
+    fq_b = npts * L_fq * 4
+    pl = lambda f, *c: chunked(lambda *cc: f(BLS12_381_FQ, *cc), *c)
+    d = kaff.affine_denom(BLS12_381_FQ, x1, y1, x2, y2)
+    check("affine_denom", f"K7 affine_denom n={npts}", d, pl(kaff.affine_denom_plain, x1, y1, x2, y2),
+          cuda_ms(lambda: kaff.affine_denom(BLS12_381_FQ, x1, y1, x2, y2)),
+          cuda_ms(lambda: pl(kaff.affine_denom_plain, x1, y1, x2, y2), iters=1))
+    iv = batch_inverse(BLS12_381_FQ, d)
+    check("affine_apply", f"K7 affine_apply n={npts}", kaff.affine_apply(BLS12_381_FQ, x1, y1, x2, y2, iv),
+          pl(kaff.affine_apply_plain, x1, y1, x2, y2, iv),
+          cuda_ms(lambda: kaff.affine_apply(BLS12_381_FQ, x1, y1, x2, y2, iv)),
+          cuda_ms(lambda: pl(kaff.affine_apply_plain, x1, y1, x2, y2, iv), iters=1),
+          nbytes=7 * fq_b, imads=npts * 4 * mont_imads(L_fq // 2))
+    win = 4 if npts >= 4 else 1  # windows, each with its own product-tree root
+    cw = [c.reshape(win, npts // win, L_fq) for c in (x1, y1, x2, y2)]
+    pp, r1 = partial_products(BLS12_381_FQ, d.reshape(win, npts // win, L_fq))
+    r2 = mont_mul(BLS12_381_FQ, r1, r1)
+    r3 = mont_mul(BLS12_381_FQ, r2, r1)
+    coz_plain = lambda: chunked(lambda *c: kaff.coz_apply_plain(BLS12_381_FQ, *c, r2, r3), *cw, pp, axis=1)
+    check("coz_apply", f"K6 coz_apply ({win}, {npts // win}) per-window r", kaff.coz_apply(BLS12_381_FQ, *cw, pp, r2, r3),
+          coz_plain(), cuda_ms(lambda: kaff.coz_apply(BLS12_381_FQ, *cw, pp, r2, r3)),
+          cuda_ms(coz_plain, iters=1))
+
+    # 4. the main path: CommitPipeline.commit at n = 2^log_n
     t0 = time.perf_counter()
     coeffs_np = random_field(rng, BLS12_381_FR, n)
     _, bases_aff = random_points(nc, rng, n)
     print(f"inputs: {n} coefficients, {n} points k*G in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    pipe = CommitPipeline(BLS12_381_G1, device="cuda")
+    pipe = CommitPipeline(BLS12_381_G1)
     coeffs = torch.as_tensor(coeffs_np).to(dev, torch.int32)
     bases = pipe.msm.upload_bases(coords_from_u64(nc, bases_aff, 2, dev))
 
-    kernels.reset_launch_counters()
     t0 = time.perf_counter()
-    evals, commitment = pipe.commit(coeffs, bases)
+    evals, commitment = on_path(kernels, report, ("mont_mul", "inter_twiddle", "point"), "commit",
+                                lambda: pipe.commit(coeffs, bases))
     torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = kernels.launch_counters()
-    print(f"main path launches: {launches} (first commit {t_first:.2f} s, tables included)",
-          flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SystemExit(f"the main path launched no {missing}")
+    print(f"first commit {time.perf_counter() - t0:.2f} s, tables included", flush=True)
 
     t0 = time.perf_counter()
     want_evals = nfr.ntt(nfr.from_halflimbs(coeffs_np.astype(np.uint64)))
@@ -338,8 +537,7 @@ def main() -> int:
     bad_evals = int((got_evals != want_evals).any(axis=1).sum())
     if evals.shape != (n, 16) or bad_evals:
         raise SystemExit(f"evaluations disagree with the native NTT on {bad_evals} rows")
-    cx, cy = pipe.ops.to_affine(commitment)
-    got_c = np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in (cx, cy)], axis=1)
+    got_c = affine_to_u64(nc, pipe.ops.to_affine(commitment))
     want_c = nc.to_affine(nc.msm(bases_aff, nfr.from_mont(want_evals))[None, :])
     if not np.array_equal(got_c, want_c):
         raise SystemExit("commitment disagrees with the native Pippenger MSM")
@@ -367,18 +565,127 @@ def main() -> int:
           f"ntt {stage['ntt']:.2f} ms, from_mont {stage['from_mont']:.3f} ms, msm {stage['msm']:.1f} ms; "
           f"peak {peak / 2**30:.2f} GiB | {card}", flush=True)
 
+    # 4b. the fused NTT (config ntt_impl="fused") on phase 4's coefficients
+    cfg = get_config()
+    default_leaf = cfg.ntt_leaf_log
+    cfg.ntt_impl = "fused"
+    fused_ms = {}
+    for leaf in sorted({5, 8, default_leaf}):
+        cfg.ntt_leaf_log = leaf
+        fk = FftKernel(BLS12_381_FR)
+        t0 = time.perf_counter()
+        y = fk.radix_fft(coeffs)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        if not torch.equal(y, evals):
+            raise SystemExit(f"fused NTT (leaf {leaf}) disagrees with the digit NTT")
+        fused_ms[leaf] = timeit(lambda: fk.radix_fft(coeffs), iters=3) * 1e3
+        print(f"fused NTT 2^{args.log_n} leaf {leaf} (plan {get_fused_domain(BLS12_381_FR, args.log_n).plan}): "
+              f"== digit evaluations; {fused_ms[leaf]:.2f} ms mean of 3 (first call {t_first:.1f} s, "
+              f"tables included) vs digit {stage['ntt']:.2f} ms | {card}", flush=True)
+    cfg.ntt_leaf_log = default_leaf
+    fk = FftKernel(BLS12_381_FR)
+    y = on_path(kernels, report, ("ntt_leaf",), "fused NTT", lambda: fk.radix_fft(coeffs))
+    back = fk.radix_fft(y, inverse=True)
+    if not (torch.equal(y, evals) and torch.equal(back, coeffs)):
+        raise SystemExit("fused NTT: forward != digit evaluations or inverse != coefficients")
+    print(f"fused NTT leaf {default_leaf}: forward == digit evaluations, inverse == coefficients", flush=True)
+    cfg.ntt_impl = "digit"
+
+    # radix_fft_many on (2^11, 2^9, 16): K5's full-width path
+    batch = coeffs.reshape(-1, 512, L_fr)
+    many = on_path(kernels, report, ("pease_stage",), "radix_fft_many",
+                   lambda: pipe.fft.radix_fft_many(batch))
+    back = pipe.fft.radix_fft_many(many, inverse=True)
+    rows = sorted({0, 1, batch.shape[0] // 2, batch.shape[0] - 1})
+    for r in rows:
+        want = nfr.ntt(nfr.from_halflimbs(batch[r].cpu().numpy().astype(np.uint64)))
+        if not np.array_equal(nfr.from_halflimbs(many[r].cpu().numpy().astype(np.uint64)), want):
+            raise SystemExit(f"radix_fft_many row {r} disagrees with the native NTT")
+    if not torch.equal(back, batch):
+        raise SystemExit("radix_fft_many: inverse does not give the inputs back")
+    many_ms = timeit(lambda: pipe.fft.radix_fft_many(batch), iters=3) * 1e3
+    print(f"radix_fft_many {tuple(batch.shape)}: rows {rows} == native NTT, inverse == inputs; "
+          f"{many_ms:.2f} ms mean of 3 | {card}", flush=True)
+
+    # 4c. the co-Z MSM on phase 4's bases and scalars
+    msm = pipe.msm
+    cz = on_path(kernels, report, ("coz_apply", "affine_denom"), "co-Z MSM",
+                 lambda: msm.multiexp(bases, scalars, method="coz"))
+    coz_launches = {k: v for k, v in kernels.launch_counters().items() if v}
+    if not np.array_equal(affine_to_u64(nc, pipe.ops.to_affine(cz)), want_c):
+        raise SystemExit("co-Z MSM disagrees with the commitment")
+    torch.cuda.reset_peak_memory_stats()
+    coz_ms = timeit(lambda: msm.multiexp(bases, scalars, method="coz"), iters=3) * 1e3
+    coz_peak = torch.cuda.max_memory_allocated()
+    pair_ms = timeit(lambda: msm.multiexp(bases, scalars, method="pair"), iters=3) * 1e3
+    print(f"co-Z MSM 2^{args.log_n}: == commitment; {coz_ms:.1f} ms mean of 3 vs pair {pair_ms:.1f} ms; "
+          f"peak {coz_peak / 2**30:.2f} GiB; launches {coz_launches} | {card}", flush=True)
+
+    # K7 denom and K6 on the co-Z MSM's first-round operands: (W, s0, L)
+    # column slices of the fused (W, s0, 2L) pair rows, r^2 and r^3 per window
+    w = default_window_size_coz(n)
+    sizes = _plan_sizes(n, 1 << (w - 1))
+    key, data = _bucket_rows(msm.ops, bases, torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1), w)
+    _, ra, rb = _pair_up(key, data, sizes[0] if sizes else n)
+    del key, data
+    W, s0 = ra.shape[:2]
+    c1x, c1y, c2x, c2y = ra[..., :L_fq], ra[..., L_fq:], rb[..., :L_fq], rb[..., L_fq:]
+    rows = max(1, CHUNK // W)
+    iz1, iz2 = ~(ra != 0).any(-1), ~(rb != 0).any(-1)
+    n_both, n_one = int((~iz1 & ~iz2).sum()), int((iz1 ^ iz2).sum())
+    del iz1, iz2
+    fq_b = W * s0 * L_fq * 4
+    d, p_ms = cuda_ms_once(lambda: chunked(lambda *c: kaff.affine_denom_plain(BLS12_381_FQ, *c),
+                                           c1x, c1y, c2x, c2y, axis=1, rows=rows))
+    check("affine_denom", f"K7 affine_denom co-Z round 1 ({W}, {s0}, {L_fq})",
+          kaff.affine_denom(BLS12_381_FQ, c1x, c1y, c2x, c2y), d,
+          cuda_ms(lambda: kaff.affine_denom(BLS12_381_FQ, c1x, c1y, c2x, c2y)), p_ms,
+          nbytes=5 * fq_b, imads=0)
+    pp, r1 = partial_products(BLS12_381_FQ, d)
+    r2 = mont_mul(BLS12_381_FQ, r1, r1)
+    r3 = mont_mul(BLS12_381_FQ, r2, r1)
+    del d, r1
+    want, p_ms = cuda_ms_once(lambda: chunked(lambda *c: kaff.coz_apply_plain(BLS12_381_FQ, *c, r2, r3),
+                                              c1x, c1y, c2x, c2y, pp, axis=1, rows=rows))
+    # 9 products where both operands are finite, 2 (the rescaled copy)
+    # where one is the identity, none where both are
+    check("coz_apply", f"K6 coz_apply co-Z round 1 ({W}, {s0}, {L_fq}), {n_both} pairs, {n_one} singles",
+          kaff.coz_apply(BLS12_381_FQ, c1x, c1y, c2x, c2y, pp, r2, r3), want,
+          cuda_ms(lambda: kaff.coz_apply(BLS12_381_FQ, c1x, c1y, c2x, c2y, pp, r2, r3)), p_ms,
+          nbytes=7 * fq_b, imads=(9 * n_both + 2 * n_one) * mont_imads(L_fq // 2))
+    del ra, rb, c1x, c1y, c2x, c2y, pp, r2, r3, want
+    print(f"co-Z rounds: {len(sizes)} shrinking ({', '.join(map(str, sizes))} rows a window), then "
+          f"{max(1, math.ceil(math.log2(sizes[-1]))) if sizes else 0} at {sizes[-1] if sizes else n}",
+          flush=True)
+
+    # device time of each hand kernel over one commit and one co-Z MSM
+    for label, fn in (("commit", lambda: pipe.commit(coeffs, bases)),
+                      ("co-Z MSM", lambda: msm.multiexp(bases, scalars, method="coz"))):
+        try:
+            got = device_split(fn)
+        except Exception as e:  # the profile informs; the checks above decide
+            got, why = None, f"{type(e).__name__}: {e}"
+        else:
+            why = "the trace holds no device time"
+        if got is None:
+            print(f"profile {label}: not measured ({why})", flush=True)
+            continue
+        split, busy = got
+        parts = ", ".join(f"{k} {v[0]:.2f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
+        print(f"profile {label}: device busy {busy:.2f} ms; hand kernels {parts} | {card}", flush=True)
+
+    # 4d. affine_add_batch (K7 apply) on the phase-3 pairs vs the Jacobian add
+    ops = pipe.ops
+    s3 = on_path(kernels, report, ("affine_apply",), "affine_add_batch",
+                 lambda: affine_add_batch(BLS12_381_FQ, (x1, y1), (x2, y2)))
+    want3 = ops.to_affine(ops.add_mixed(ops.to_jacobian((x1, y1)), (x2, y2)))
+    if not all(torch.equal(g, w) for g, w in zip(s3, want3)):
+        raise SystemExit("affine_add_batch disagrees with the Jacobian mixed add")
+    print(f"affine_add_batch n={npts}: == Jacobian add_mixed + to_affine", flush=True)
+
     # 5. summary lines
-    info = {
-        "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
-        "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
-        "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
-    }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"tpu_ec_torch/{src}", "replaces": rep,
-         "launches": launches[name], "max_abs_err": errors[name],
-         "ms": round(timings[name][0], 4), "plain_ms": round(timings[name][1], 4)}
-        for name, (src, rep) in info.items()
-    ]}), flush=True)
+    print(report.json_line(), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -32,19 +32,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_limbs_roundtrip():
     rng = np.random.default_rng(1)
     a = rng.integers(0, 1 << 16, (9, 24), dtype=np.int64).astype(np.uint32)
-    t = limbs_to_torch(a)
+    t = limbs_to_torch(a, "cpu")
     assert t.dtype == torch.int64 and t.shape == (9, 24)
     back = limbs_to_numpy(t)
     assert back.dtype == np.uint32 and np.array_equal(back, a)
-    pts = points_to_numpy(points_to_torch((a, a[::-1].copy())))
+    pts = points_to_numpy(points_to_torch((a, a[::-1].copy()), "cpu"))
     assert np.array_equal(pts[0], a) and np.array_equal(pts[1], a[::-1])
 
 
 def test_ints_roundtrip_and_range_check():
     vals = [0, 1, (1 << 256) - 1, 12345678901234567890]
-    assert limbs_to_ints(ints_to_limbs(vals, 16)) == vals
+    assert limbs_to_ints(ints_to_limbs(vals, 16, "cpu")) == vals
     with pytest.raises(ValueError):
-        limbs_to_torch(np.full((1, 16), 1 << 16, np.int64))
+        limbs_to_torch(np.full((1, 16), 1 << 16, np.int64), "cpu")
 
 
 def test_measure_helpers():
@@ -67,19 +67,19 @@ from tpu_ec_torch.fields import FieldOps
 from tpu_ec_torch.ops.ntt import FftKernel
 from tpu_ec_torch.ops.pipeline import CommitPipeline
 
-ops = PointOps(BLS12_381_G1)
-fr = FieldOps(BLS12_381_G1.scalar)
+ops = PointOps(BLS12_381_G1, "cpu")
+fr = FieldOps(BLS12_381_G1.scalar, "cpu")
 g = ops.from_affine_ints([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
 pts = [ops.to_jacobian(g)]
 for _ in range(7):
     pts.append(ops.add_mixed(pts[-1], g))
 bases = ops.to_affine(tuple(__import__("torch").cat(c) for c in zip(*pts)))
 coeffs = fr.from_ints(list(range(3, 11)))
-evals, commit = CommitPipeline(BLS12_381_G1).commit(coeffs, bases)
+evals, commit = CommitPipeline(BLS12_381_G1, "cpu").commit(coeffs, bases)
 assert evals.shape == (8, 16) and commit[0].shape == (1, 24)
 assert ops.to_affine_ints(ops.to_affine(commit))[0] is not None
 assert bool(fr.eq(evals, evals).all()) and not bool(fr.eq(coeffs, evals).all())
-FftKernel(BLS12_381_G1.scalar).radix_fft(fr.from_ints(list(range(1 << 10))))
+FftKernel(BLS12_381_G1.scalar, "cpu").radix_fft(fr.from_ints(list(range(1 << 10))))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "tpu_ec.")) or m == "tpu_ec")
 assert not bad, bad
 print("ok")

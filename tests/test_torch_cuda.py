@@ -19,6 +19,9 @@ from tpu_ec_torch.fields import params as tfp
 from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
 from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
 from tpu_ec_torch.kernels.point import point_op, point_op_plain
+from tpu_ec_torch.kernels import affine as kaff
+from tpu_ec_torch.kernels.butterfly import pease_stage, pease_stage_plain
+from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +135,103 @@ def test_commit_matches_native(cuda):
     got = np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in (x, y)], axis=1)
     want = nc.to_affine(nc.msm(aff, nfr.from_mont(want_evals))[None, :])
     assert np.array_equal(got, want)
+
+
+def test_pease_stage_kernel_matches_plain(cuda):
+    spec = tfp.BLS12_381_FR
+    y = torch.as_tensor(_field(spec, 5 * 512, 7).reshape(5, 512, 16)).to(cuda, torch.int32)
+    tw = torch.as_tensor(_field(spec, 256, 8)).to(cuda, torch.int32)
+    for s in (0, 3, 8):
+        assert torch.equal(pease_stage(spec, y, tw, s), pease_stage_plain(spec, y, tw, s)), s
+
+
+@pytest.mark.parametrize("log_m,batch", [(1, 300), (4, 4096), (8, 33), (10, 5)])
+def test_ntt_leaf_kernel_matches_plain(cuda, log_m, batch):
+    spec = tfp.BLS12_381_FR
+    m = 1 << log_m
+    x = torch.as_tensor(_field(spec, m * batch, 9).reshape(m, batch, 16)).to(cuda, torch.int32)
+    k = log_m * (m // 2)
+    tw = torch.as_tensor(_field(spec, max(k, 3), 10)[:k].reshape(log_m, m // 2, 16)).to(cuda, torch.int32)
+    assert torch.equal(ntt_leaf(spec, x, tw), ntt_leaf_plain(spec, x, tw))
+
+
+def _affine_pairs(ops, n):
+    """Affine pairs (k*G, (k+1)*G) with identity, both-identity, P == Q and
+    P == -Q rows, as fused (n, 2L) rows and their column slices."""
+    A, _ = _points(ops, n + 1)
+    P = tuple(c[:n].clone() for c in A)
+    Q = tuple(c[1:].clone() for c in A)
+    for c in P:
+        c[0] = 0
+    for c in Q:
+        c[1] = 0
+        c[0] = 0
+    for k in range(2):
+        Q[k][2] = P[k][2]
+    Q[0][3] = P[0][3]
+    Q[1][3] = ops.F.neg(P[1][3:4])[0]
+    L = ops.L
+    fused = torch.cat([*P, *Q], dim=1)
+    return [fused[:, i * L : (i + 1) * L] for i in range(4)]
+
+
+def test_affine_kernels_match_plain(cuda):
+    ops = PointOps(BLS12_381_G1, cuda)
+    spec = BLS12_381_G1.base
+    x1, y1, x2, y2 = _affine_pairs(ops, 40)
+    d = kaff.affine_denom(spec, x1, y1, x2, y2)
+    assert torch.equal(d, kaff.affine_denom_plain(spec, x1, y1, x2, y2))
+    got = kaff.affine_apply(spec, x1, y1, x2, y2, d)
+    want = kaff.affine_apply_plain(spec, x1, y1, x2, y2, d)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # co-Z: two windows of 20 rows, each with its own r2, r3
+    win = [c.reshape(2, 20, ops.L) for c in (x1, y1, x2, y2, d)]
+    r = d[5:7].reshape(2, 1, ops.L).contiguous()
+    r3 = d[7:9].reshape(2, 1, ops.L).contiguous()
+    got = kaff.coz_apply(spec, *win, r, r3)
+    want = kaff.coz_apply_plain(spec, *win, r, r3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_coz_msm_matches_native(cuda):
+    from tpu_ec_torch.native import native_curve, native_field
+    from tpu_ec_torch.ops.msm import MultiexpKernel
+
+    n = 1 << 12
+    nc, nfr = native_curve(BLS12_381_G1), native_field(BLS12_381_G1.scalar)
+    rng = np.random.default_rng(11)
+    ks = np.zeros((n, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    G = nc.affine_from_points([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    aff = nc.to_affine(nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks))
+    w = nc.w
+    bases = tuple(
+        torch.as_tensor(nc.fq.to_halflimbs(aff[:, i * w : (i + 1) * w]).astype(np.int64)).to(cuda, torch.int32)
+        for i in range(2)
+    )
+    scal = _field(BLS12_381_G1.scalar, n, 12)
+    kern = MultiexpKernel(BLS12_381_G1, cuda)
+    out = kern.multiexp(bases, torch.as_tensor(scal).to(cuda, torch.int32), method="coz")
+    x, y = kern.ops.to_affine(out)
+    got = np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in (x, y)], axis=1)
+    want = nc.to_affine(nc.msm(aff, nfr.from_halflimbs(scal.astype(np.uint64)))[None, :])
+    assert np.array_equal(got, want)
+
+
+def test_fused_ntt_matches_digit(cuda):
+    from tpu_ec_torch.config import get_config
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    spec = tfp.BLS12_381_FR
+    x = torch.as_tensor(_field(spec, 1 << 14, 13)).to(cuda, torch.int32)
+    cfg = get_config()
+    saved = cfg.ntt_impl
+    try:
+        want = FftKernel(spec, cuda).radix_fft(x)
+        cfg.ntt_impl = "fused"
+        k = FftKernel(spec, cuda)
+        y = k.radix_fft(x)
+        assert torch.equal(y, want)
+        assert torch.equal(k.radix_fft(y, inverse=True), x)
+    finally:
+        cfg.ntt_impl = saved

@@ -37,7 +37,7 @@ def _pair(name, seed, n=48):
     jf = j_field_ops(spec)
     a = np.asarray(jf.from_ints(_ints(spec, n, seed)))
     b = np.asarray(jf.from_ints(_ints(spec, n, seed + 1)[::-1]))
-    return jf, FieldOps(getattr(tfp, name)), a, b
+    return jf, FieldOps(getattr(tfp, name), "cpu"), a, b
 
 
 @pytest.mark.parametrize("name", FIELDS)
@@ -45,7 +45,7 @@ def _pair(name, seed, n=48):
 def test_binary_op_matches_tpu_ec(name, op):
     jf, tf, a, b = _pair(name, 10)
     want = np.asarray(getattr(jf, op)(a, b))
-    got = limbs_to_numpy(getattr(tf, op)(limbs_to_torch(a), limbs_to_torch(b)))
+    got = limbs_to_numpy(getattr(tf, op)(limbs_to_torch(a, "cpu"), limbs_to_torch(b, "cpu")))
     assert np.array_equal(got, want)
 
 
@@ -56,7 +56,7 @@ def test_unary_op_matches_tpu_ec(name, op):
     if op == "to_mont":  # to_mont takes plain values < p
         a = np.asarray(jf.from_ints(_ints(jf.spec, 48, 21), mont=False))
     want = np.asarray(getattr(jf, op)(a))
-    got = limbs_to_numpy(getattr(tf, op)(limbs_to_torch(a)))
+    got = limbs_to_numpy(getattr(tf, op)(limbs_to_torch(a, "cpu")))
     assert np.array_equal(got, want)
 
 
@@ -68,15 +68,15 @@ def test_mont_plain_matches_pallas_interpret(name):
     _, _, a, b = _pair(name, 30, n=24)
     want = np.asarray(j_pallas_mont_mul(spec, a, b, block=128, interpret=True))
     tspec = getattr(tfp, name)
-    got = limbs_to_numpy(mont_mul_plain(tspec, limbs_to_torch(a), limbs_to_torch(b)))
+    got = limbs_to_numpy(mont_mul_plain(tspec, limbs_to_torch(a, "cpu"), limbs_to_torch(b, "cpu")))
     assert np.array_equal(got, want)
     # the wrapper takes the plain version on CPU tensors
-    assert np.array_equal(limbs_to_numpy(mont_mul(tspec, limbs_to_torch(a), limbs_to_torch(b))), want)
+    assert np.array_equal(limbs_to_numpy(mont_mul(tspec, limbs_to_torch(a, "cpu"), limbs_to_torch(b, "cpu"))), want)
 
 
 def test_inverse_and_ints_roundtrip():
     spec = tfp.BLS12_381_FQ
-    f = FieldOps(spec)
+    f = FieldOps(spec, "cpu")
     vals = _ints(spec, 6, 40)[1:]  # nonzero
     a = f.from_ints(vals)
     assert f.to_ints(a) == vals

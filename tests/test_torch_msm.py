@@ -21,7 +21,7 @@ from tpu_ec_torch.ops.msm_pair import default_window_size_pair
 
 
 def _run(tspec, jspec, pts, ks, **kw):
-    kern = MultiexpKernel(tspec, chunk_size=kw.pop("chunk_size", None))
+    kern = MultiexpKernel(tspec, "cpu", chunk_size=kw.pop("chunk_size", None))
     ops = kern.ops
     out = kern.multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), **kw)
     assert ops.to_affine_ints(ops.to_affine(out))[0] == oracle.msm(jspec, pts, ks)

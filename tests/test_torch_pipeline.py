@@ -44,8 +44,8 @@ def test_commit_n32_matches_tpu_ec():
     j_evals, j_commit = JCommitPipeline(J_G1).commit(coeffs, bases)
     want_affine = tuple(np.asarray(c) for c in jops.to_affine(j_commit))
 
-    pipe = CommitPipeline(BLS12_381_G1)
-    evals, commit = pipe.commit(limbs_to_torch(coeffs), points_to_torch(bases))
+    pipe = CommitPipeline(BLS12_381_G1, "cpu")
+    evals, commit = pipe.commit(limbs_to_torch(coeffs, "cpu"), points_to_torch(bases, "cpu"))
     assert np.array_equal(limbs_to_numpy(evals), np.asarray(j_evals)), "NTT stage"
     got_affine = points_to_numpy(pipe.ops.to_affine(commit))
     assert all(np.array_equal(g, w) for g, w in zip(got_affine, want_affine)), "commitment"
@@ -64,11 +64,32 @@ def test_commit_n1024_digit_route_vs_native():
     jfr = j_field_ops(J_G1.scalar)
     coeffs = np.asarray(jfr.from_ints(_coeffs(n, 43)))
 
-    pipe = CommitPipeline(BLS12_381_G1)
-    evals, commit = pipe.commit(limbs_to_torch(coeffs), points_to_torch(bases))
+    pipe = CommitPipeline(BLS12_381_G1, "cpu")
+    evals, commit = pipe.commit(limbs_to_torch(coeffs, "cpu"), points_to_torch(bases, "cpu"))
     want_evals = np.asarray(JFftKernel(J_G1.scalar).radix_fft(coeffs))
     assert np.array_equal(limbs_to_numpy(evals), want_evals), "NTT stage (digit route)"
 
     eval_ints = jfr.to_ints(want_evals)
     want = nc.affine_to_points(nc.to_affine(nc.msm(aff, nc.scalars_from_ints(eval_ints))[None, :]))[0]
     assert pipe.ops.to_affine_ints(pipe.ops.to_affine(commit))[0] == want, "commitment"
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device`` every entry point runs on the card; where there is
+    none it raises instead of carrying on on the CPU."""
+    from tpu_ec_torch.convert import limbs_to_torch
+    from tpu_ec_torch.errors import DeviceError
+    from tpu_ec_torch.fields import FieldOps
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    if torch.cuda.is_available():
+        assert CommitPipeline(BLS12_381_G1).device.type == "cuda"
+        return
+    for make in (
+        lambda: CommitPipeline(BLS12_381_G1),
+        lambda: FftKernel(BLS12_381_G1.scalar),
+        lambda: FieldOps(BLS12_381_G1.base),
+        lambda: limbs_to_torch(np.zeros((1, 16), np.uint32)),
+    ):
+        with pytest.raises(DeviceError, match="device='cpu'"):
+            make()

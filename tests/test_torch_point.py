@@ -39,7 +39,7 @@ def batch():
     P = jops.add_mixed(jops.double(jops.to_jacobian(A1)), A1)  # z != 1
     Q = jops.to_jacobian(A2)
     P2 = jops.add_mixed(jops.double(jops.to_jacobian(A2)), A2)  # Q's point, other z
-    return jops, PointOps(BLS12_381_G1), [tuple(map(np.asarray, t)) for t in (P, Q, A2, P2)]
+    return jops, PointOps(BLS12_381_G1, "cpu"), [tuple(map(np.asarray, t)) for t in (P, Q, A2, P2)]
 
 
 def _same(got, want):
@@ -48,28 +48,28 @@ def _same(got, want):
 
 def test_add(batch):
     jops, tops, (P, Q, _, P2) = batch
-    assert _same(tops.add(points_to_torch(P), points_to_torch(Q)), jops.add(P, Q))
+    assert _same(tops.add(points_to_torch(P, "cpu"), points_to_torch(Q, "cpu")), jops.add(P, Q))
     # P == Q with different Jacobian representations takes the doubling
-    assert _same(tops.add(points_to_torch(Q), points_to_torch(P2)), jops.add(Q, P2))
+    assert _same(tops.add(points_to_torch(Q, "cpu"), points_to_torch(P2, "cpu")), jops.add(Q, P2))
 
 
 def test_add_mixed(batch):
     jops, tops, (P, _, A2, _) = batch
-    assert _same(tops.add_mixed(points_to_torch(P), points_to_torch(A2)), jops.add_mixed(P, A2))
+    assert _same(tops.add_mixed(points_to_torch(P, "cpu"), points_to_torch(A2, "cpu")), jops.add_mixed(P, A2))
 
 
 def test_double(batch):
     jops, tops, (P, _, _, _) = batch
-    assert _same(tops.double(points_to_torch(P)), jops.double(P))
+    assert _same(tops.double(points_to_torch(P, "cpu")), jops.double(P))
 
 
 def test_to_affine(batch):
     jops, tops, (P, _, _, _) = batch
-    assert _same(tops.to_affine(points_to_torch(P)), jops.to_affine(P))
+    assert _same(tops.to_affine(points_to_torch(P, "cpu")), jops.to_affine(P))
 
 
 def test_affine_ints_roundtrip():
-    tops = PointOps(BLS12_381_G1)
+    tops = PointOps(BLS12_381_G1, "cpu")
     pts = oracle.random_points(J_G1, 3, seed=5) + [None]
     assert tops.to_affine_ints(tops.from_affine_ints(pts)) == pts
 

@@ -9,10 +9,15 @@ cache                        TPU_EC_TORCH_CACHE                ops/ntt_digit tab
 cache_dir                    TPU_EC_TORCH_CACHE_DIR            ops/ntt_digit tables
 native_build_dir             TPU_EC_TORCH_BUILD_DIR            native, kernels/build
 ntt_digit_leaf_log           TPU_EC_TORCH_NTT_DIGIT_LEAF_LOG   ops/ntt_digit
+ntt_impl                     TPU_EC_TORCH_NTT_IMPL             ops/ntt (log_n >= 10)
+ntt_leaf_log                 TPU_EC_TORCH_NTT_LEAF_LOG         ops/ntt_fused
 msm_window                   TPU_EC_TORCH_MSM_WINDOW           ops/msm (None = auto)
 msm_hbm_budget_bytes         TPU_EC_TORCH_HBM_BUDGET           ops/msm.calc_chunk_size
 log_level                    TPU_EC_TORCH_LOG                  get_logger
 ==========================  ================================  ======================
+
+``get_config()`` returns the process-wide instance; set its fields to
+change it at run time.
 
 Everything that is built at run time (the CUDA kernels, the native C++
 library, the digit-NTT tables) lands under one directory,
@@ -26,6 +31,7 @@ import logging
 import os
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+NTT_LEAF_LOG_DEFAULT = 8
 
 
 def _env_int(name: str, default: int | None) -> int | None:
@@ -52,6 +58,13 @@ class Config:
     # digit-matmul NTT max leaf radix log2; bounded by the int32 accumulator
     # (m * 37 * 127^2 < 2^31 -> leaf <= 11)
     ntt_digit_leaf_log: int = 8
+    # NTT route for log_n >= 10: "digit" (int8 leaf GEMMs + K2,
+    # ops/ntt_digit.py) or "fused" (block-resident leaf NTTs, kernel K4,
+    # ops/ntt_fused.py); both give the same values
+    ntt_impl: str = "digit"
+    # fused-NTT leaf radix log2 (kernel K4 holds 2^leaf elements a block;
+    # at most 10)
+    ntt_leaf_log: int = NTT_LEAF_LOG_DEFAULT
     # MSM window bits; None = analytic model (msm_pair.default_window_size_pair)
     msm_window: int | None = None
     # device-memory budget for MSM chunk sizing; None = the free memory the
@@ -66,6 +79,8 @@ class Config:
             cache_dir=os.environ.get("TPU_EC_TORCH_CACHE_DIR") or None,
             native_build_dir=os.environ.get("TPU_EC_TORCH_BUILD_DIR") or None,
             ntt_digit_leaf_log=_env_int("TPU_EC_TORCH_NTT_DIGIT_LEAF_LOG", 8) or 8,
+            ntt_impl=os.environ.get("TPU_EC_TORCH_NTT_IMPL") or "digit",
+            ntt_leaf_log=_env_int("TPU_EC_TORCH_NTT_LEAF_LOG", None) or NTT_LEAF_LOG_DEFAULT,
             msm_window=_env_int("TPU_EC_TORCH_MSM_WINDOW", None),
             msm_hbm_budget_bytes=_env_int("TPU_EC_TORCH_HBM_BUDGET", None),
             log_level=os.environ.get("TPU_EC_TORCH_LOG", "WARNING"),

@@ -11,12 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fields.limbs import storage_dtype
+from .fields.limbs import resolve_device, storage_dtype
 from .fields.params import int_to_limbs, limbs_to_int
 
 
-def limbs_to_torch(arr, device="cpu") -> torch.Tensor:
+def limbs_to_torch(arr, device="cuda") -> torch.Tensor:
     """numpy (n, L) half-limbs (any integer dtype, values < 2^16) -> port tensor."""
+    device = resolve_device(device)
     a = np.asarray(arr)
     if a.size and (a.min() < 0 or a.max() >= 1 << 16):
         raise ValueError("half-limbs must lie in [0, 2^16)")
@@ -28,7 +29,7 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.int64).numpy().astype(np.uint32)
 
 
-def points_to_torch(pts, device="cpu") -> tuple:
+def points_to_torch(pts, device="cuda") -> tuple:
     """Affine (x, y) (or Jacobian) numpy coordinate tuple -> port tuple."""
     return tuple(limbs_to_torch(c, device) for c in pts)
 
@@ -37,7 +38,7 @@ def points_to_numpy(pts) -> tuple:
     return tuple(limbs_to_numpy(c) for c in pts)
 
 
-def ints_to_limbs(values, n_limbs: int, device="cpu") -> torch.Tensor:
+def ints_to_limbs(values, n_limbs: int, device="cuda") -> torch.Tensor:
     """Plain non-negative Python ints -> (n, n_limbs) limb tensor (no
     Montgomery conversion)."""
     arr = np.stack([int_to_limbs(int(v), n_limbs) for v in values]) if len(values) else (

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..fields.fp import FieldOps
+from ..fields.limbs import resolve_device
 from ..kernels.point import point_op
 from .params import CurveSpec
 
@@ -47,11 +48,11 @@ def _batch_inverse(F: FieldOps, a: torch.Tensor) -> torch.Tensor:
 class PointOps:
     """Batched Jacobian group ops bound to one G1 :class:`CurveSpec` and device."""
 
-    def __init__(self, spec: CurveSpec, device="cpu"):
+    def __init__(self, spec: CurveSpec, device="cuda"):
         if spec.ext != 1:
             raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port")
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fq = FieldOps(spec.base, self.device)
         self.F = self.fq
         self.fr = FieldOps(spec.scalar, self.device)

@@ -17,16 +17,16 @@ import numpy as np
 import torch
 
 from ..kernels.mont import mont_mul
-from .limbs import add_plain, storage_dtype, sub_borrow, sub_plain
+from .limbs import add_plain, resolve_device, storage_dtype, sub_borrow, sub_plain
 from .params import FieldSpec, int_to_limbs, limbs_to_int
 
 
 class FieldOps:
     """Batched field ops bound to one :class:`FieldSpec` and one device."""
 
-    def __init__(self, spec: FieldSpec, device="cpu"):
+    def __init__(self, spec: FieldSpec, device="cuda"):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = storage_dtype(self.device)
         self.L = spec.n_limbs
         self.p = self._t(spec.p_limbs)

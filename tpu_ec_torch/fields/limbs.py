@@ -22,10 +22,21 @@ import functools
 import numpy as np
 import torch
 
+from ..errors import DeviceError
 from .params import FieldSpec
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  The entry points default to
+    ``"cuda"``; without a card that raises instead of carrying on on the
+    CPU, which a caller has to ask for (``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceError("no CUDA device: pass device='cpu' to run the plain versions")
+    return dev
 
 
 def storage_dtype(device) -> torch.dtype:

@@ -1,18 +1,25 @@
 """The hand-written CUDA kernels (csrc/), their wrappers and plain versions.
 
-K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``.
+K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``,
+K4 ``ntt_leaf.ntt_leaf``, K5 ``butterfly.pease_stage``, K6
+``affine.coz_apply``, K7 ``affine.affine_denom`` and ``affine.affine_apply``.
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors (or raises), and counts its launches.
 """
 
-from . import inter, mont, point
+from . import affine, butterfly, inter, mont, ntt_leaf, point
+
+_COUNTERS = (
+    mont.LAUNCHES, inter.LAUNCHES, point.LAUNCHES, ntt_leaf.LAUNCHES, butterfly.LAUNCHES,
+    affine.COZ_LAUNCHES, affine.DENOM_LAUNCHES, affine.APPLY_LAUNCHES,
+)
 
 
 def launch_counters() -> dict:
-    """{kernel name: launches so far} for K1, K2 and K3."""
-    return {m.LAUNCHES.name: m.LAUNCHES.count for m in (mont, inter, point)}
+    """{kernel name: launches so far} for every kernel wrapper."""
+    return {c.name: c.count for c in _COUNTERS}
 
 
 def reset_launch_counters() -> None:
-    for m in (mont, inter, point):
-        m.LAUNCHES.count = 0
+    for c in _COUNTERS:
+        c.count = 0

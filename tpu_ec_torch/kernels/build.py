@@ -25,12 +25,10 @@ from ..errors import DeviceError
 from ..fields.params import FieldSpec
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("mont.cu", "inter.cu", "point.cu")
+SOURCES = ("mont.cu", "inter.cu", "point.cu", "ntt.cu", "affine.cu")
 HEADERS = ("field.cuh",)
-FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -74,18 +72,39 @@ def ptxas_report() -> str:
 
 
 def build() -> float:
-    """Compile the library if it is not built yet; returns the seconds taken."""
+    """Compile the library if it is not built yet; returns the seconds taken.
+
+    One nvcc per source, all started together, then one link."""
     out = library_path()
     if os.path.exists(out):
         return 0.0
     t0 = time.perf_counter()
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.splitext(src)[0]}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    reports = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            for other in procs:
+                other.kill()
+                other.wait()
+            raise DeviceError(f"nvcc failed on {src} ({proc.returncode}):\n{err[-4000:]}")
+        reports.append(err)
+    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if res.returncode != 0:
-        raise DeviceError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise DeviceError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     with open(out + ".ptxas.txt", "w") as f:
-        f.write(res.stderr)
+        f.write("".join(reports))
     os.replace(tmp, out)
     return time.perf_counter() - t0
 
@@ -105,6 +124,12 @@ def load() -> ctypes.CDLL:
         lib.tec_inter.restype = i32
         lib.tec_point.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp]
         lib.tec_point.restype = i32
+        lib.tec_pease_stage.argtypes = [i32, vp, vp, vp, i64, i32, i32, vp, vp]
+        lib.tec_pease_stage.restype = i32
+        lib.tec_ntt_leaf.argtypes = [i32, vp, vp, vp, i32, i64, vp, vp]
+        lib.tec_ntt_leaf.restype = i32
+        lib.tec_affine.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp, i64, vp, vp]
+        lib.tec_affine.restype = i32
         lib.tec_error_string.argtypes = [i32]
         lib.tec_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -143,3 +168,26 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> No
         raise DeviceError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise DeviceError(f"{name}: expected a contiguous tensor")
+
+
+def row_views(what: str, coords, L: int) -> list[torch.Tensor]:
+    """Coordinates of one shape (..., L), int32 on one CUDA device, each as
+    an (n, L) view whose last axis is contiguous (a column slice of a fused
+    row matrix stays a view: its row stride goes to the kernel)."""
+    shape = coords[0].shape
+    if coords[0].device.type != "cuda":
+        raise DeviceError(f"{what}: expected CPU or CUDA tensors, got {coords[0].device}")
+    if shape[-1] != L:
+        raise ValueError(f"{what}: last axis must be {L} half-limbs, got {tuple(shape)}")
+    flat = []
+    for k, c in enumerate(coords):
+        if c.device != coords[0].device or c.dtype != torch.int32 or c.shape != shape:
+            raise ValueError(
+                f"{what}: coordinate {k} is {c.dtype} {tuple(c.shape)} on {c.device}; "
+                f"expected int32 {tuple(shape)} on {coords[0].device}"
+            )
+        f = c.reshape(-1, L)
+        if f.stride(-1) != 1:
+            f = f.contiguous()
+        flat.append(f)
+    return flat

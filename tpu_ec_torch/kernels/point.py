@@ -14,10 +14,9 @@ import ctypes
 
 import torch
 
-from ..errors import DeviceError
 from ..fields.limbs import add_plain, const_tensor, sub_plain
 from ..fields.params import FieldSpec
-from .build import Launches, check, load, field_consts, stream
+from .build import Launches, check, field_consts, load, row_views, stream
 from .mont import mont_mul_plain
 
 LAUNCHES = Launches("point")
@@ -164,21 +163,7 @@ def point_op(spec: FieldSpec, op: str, coords) -> tuple:
         return point_op_plain(spec, op, coords)
     L = spec.n_limbs
     shape = coords[0].shape
-    if coords[0].device.type != "cuda":
-        raise DeviceError(f"{op}: expected CPU or CUDA tensors, got {coords[0].device}")
-    if shape[-1] != L:
-        raise ValueError(f"{op}: last axis must be {L} half-limbs, got {tuple(shape)}")
-    flat = []
-    for k, c in enumerate(coords):
-        if c.device != coords[0].device or c.dtype != torch.int32 or c.shape != shape:
-            raise ValueError(
-                f"{op}: coordinate {k} is {c.dtype} {tuple(c.shape)} on {c.device}; "
-                f"expected int32 {tuple(shape)} on {coords[0].device}"
-            )
-        f = c.reshape(-1, L)
-        if f.stride(-1) != 1:
-            f = f.contiguous()
-        flat.append(f)
+    flat = row_views(op, coords, L)
     n = flat[0].shape[0]
     outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
     ins = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in flat])

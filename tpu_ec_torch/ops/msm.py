@@ -1,10 +1,11 @@
 """Pippenger multi-scalar multiplication (MSM / "multiexp") entry point.
 
-PyTorch counterpart of ``tpu_ec/ops/msm.py`` for the path the commit
-pipeline takes: signed window digits (``make_digits``), chunk sizing by
-device memory (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the
-pair-halving engine (``ops/msm_pair.py``), with oversized inputs split into
-chunks whose partial sums are added on the device.
+PyTorch counterpart of ``tpu_ec/ops/msm.py`` for signed digits: window
+digits (``make_digits``), chunk sizing by device memory
+(``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
+engine (``ops/msm_pair.py``, the commit pipeline's) or the co-Z engine
+(``ops/msm_coz.py``), with oversized inputs split into chunks whose partial
+sums are added on the device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from ..config import get_config, get_logger
 from ..curves.params import CurveSpec
 from ..curves.point import PointOps
 from ..errors import Aborted
+from ..fields.limbs import resolve_device
 
 SCALAR_BITS = 256  # Fr limb width for both supported curves (16 x 16-bit)
 
@@ -76,13 +78,18 @@ def calc_chunk_size(spec: CurveSpec, device, hbm_budget_bytes: int | None = None
     return max(1 << 12, 1 << (n.bit_length() - 1))  # round down to pow2
 
 
+# engines of tpu_ec's multiexp that the port has not ported yet, and where
+# ROADMAP.md queues them
+_NOT_PORTED = {"sorted": "item 15", "scan": "item 8", "lattice": "item 11"}
+
+
 class MultiexpKernel:
     """MSM entry point bound to one G1 curve and device."""
 
-    def __init__(self, spec: CurveSpec, device="cpu", maybe_abort=None,
+    def __init__(self, spec: CurveSpec, device="cuda", maybe_abort=None,
                  chunk_size: int | None = None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ops = PointOps(spec, self.device)
         self.maybe_abort = maybe_abort
         self.chunk_size = chunk_size or calc_chunk_size(spec, self.device)
@@ -91,26 +98,41 @@ class MultiexpKernel:
         if self.maybe_abort is not None and self.maybe_abort():
             raise Aborted("MSM aborted by hook")
 
-    def multiexp(self, bases, scalars: torch.Tensor, *, window_size: int | None = None):
+    def multiexp(self, bases, scalars: torch.Tensor, *, window_size: int | None = None,
+                 method: str = "auto"):
         """sum_i scalars[i] * bases[i] -> one Jacobian point (batch (1,)).
 
         ``bases`` are affine (x, y) of (n, L) ((0, 0) = identity);
         ``scalars`` are (n, Ls) plain-integer limbs (not Montgomery; see
-        ``PointOps.scalars_to_limbs``)."""
+        ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
+        pair-halving engine, which "auto" picks) or "coz" (the co-Z
+        scaled-affine engine)."""
+        from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
 
         self._check_abort()
+        if method == "auto":
+            method = "pair"
+        if method in _NOT_PORTED:
+            raise NotImplementedError(
+                f"MSM engine {method!r} is not ported yet (ROADMAP.md queue 1, {_NOT_PORTED[method]})"
+            )
+        engines = {"pair": (msm_pair, default_window_size_pair),
+                   "coz": (msm_coz, default_window_size_coz)}
+        if method not in engines:
+            raise ValueError(f"unknown MSM method {method!r}")
         n = bases[0].shape[0]
         if n > self.chunk_size:
-            return self._multiexp_chunked(bases, scalars, window_size)
-        w = window_size or get_config().msm_window or default_window_size_pair(n)
+            return self._multiexp_chunked(bases, scalars, window_size, method)
+        engine, default_w = engines[method]
+        w = window_size or get_config().msm_window or default_w(n)
         get_logger("tpu_ec_torch.msm").info(
-            "MSM n=%d curve=%s engine=pair window=%d", n, self.spec.name, w
+            "MSM n=%d curve=%s engine=%s window=%d", n, self.spec.name, method, w
         )
         s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1)
-        return msm_pair(self.ops, bases, s, window_size=w)
+        return engine(self.ops, bases, s, window_size=w)
 
-    def _multiexp_chunked(self, bases, scalars, window_size):
+    def _multiexp_chunked(self, bases, scalars, window_size, method):
         """Split an oversized MSM into chunk_size pieces and add the partial
         Jacobian results on the device."""
         n = bases[0].shape[0]
@@ -122,7 +144,7 @@ class MultiexpKernel:
         for lo in range(0, n, c):
             self._check_abort()
             b = tuple(t[lo : lo + c] for t in bases)
-            part = self.multiexp(b, scalars[lo : lo + c], window_size=window_size)
+            part = self.multiexp(b, scalars[lo : lo + c], window_size=window_size, method=method)
             acc = part if acc is None else self.ops.add(acc, part)
         return acc
 

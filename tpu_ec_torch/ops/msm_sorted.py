@@ -1,7 +1,9 @@
-"""Bucket tail of the Pippenger MSM: the triangular weighted bucket sum.
+"""Shared parts of the sorted-bucket MSM engines: the static round sizes and
+the triangular weighted bucket sum.
 
-PyTorch counterpart of ``tpu_ec/ops/msm_sorted.py::_hs_prefix_scan`` and
-``_triangular_sum`` (the rest of that engine is not ported).  Where
+PyTorch counterpart of ``tpu_ec/ops/msm_sorted.py::_plan_sizes``,
+``_hs_prefix_scan`` and ``_triangular_sum`` (the sorted engine itself is not
+ported).  Where
 ``tpu_ec`` maps these over windows with ``vmap``, here every tensor carries
 an explicit leading window axis: point coordinates are (W, S, L).
 """
@@ -13,6 +15,22 @@ import math
 import torch
 
 from ..curves.point import PointOps
+
+
+def _plan_sizes(n: int, half: int) -> list[int]:
+    """Static compaction sizes for the shrinking halving rounds: shrink while
+    the geometric term dominates the ~(half + 6) fixed point, then hand off
+    to the constant-size rounds."""
+    sizes = []
+    s = n
+    floor = int(1.25 * (half + 6)) + 8
+    while s > floor:
+        nxt = min(s, s // 2 + half // 2 + 3)
+        if nxt >= s:
+            break
+        s = nxt
+        sizes.append(s)
+    return sizes
 
 
 def _hs_prefix_scan(ops: PointOps, v, length: int):

@@ -5,11 +5,13 @@ PyTorch counterpart of ``tpu_ec/ops/ntt.py``.  Conventions match
 X_k = sum_j x_j w^(jk), w = root_of_unity^(2^(s - log_n)); the inverse
 transform scales by n^-1.
 
-Routing is by size alone, on every device: log_n > 9 runs the digit-matmul
-NTT (``ops/ntt_digit.py``: int8 leaf GEMMs and kernel K2), smaller
-transforms the constant-geometry Pease loop below (kernel K1 for its
-products).  ``tpu_ec`` routes on the backend instead; the two routes are
-bit-exact equal, so the CPU tests walk the path the card walks.
+Routing is by size and config alone, on every device: log_n >= 10 runs the
+route that config ``ntt_impl`` names, "digit" (``ops/ntt_digit.py``: int8
+leaf GEMMs and kernel K2, the default) or "fused" (``ops/ntt_fused.py``:
+block-resident leaves, kernel K4); smaller transforms run the
+constant-geometry Pease loop below, one kernel-K5 launch per stage.
+``tpu_ec`` routes on the backend too; all routes are bit-exact equal, so
+the CPU tests walk the path the card walks.
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ import functools
 import numpy as np
 import torch
 
+from ..config import get_config
 from ..errors import Aborted
 from ..fields.fp import FieldOps
+from ..fields.limbs import resolve_device
 from ..fields.params import FieldSpec, int_to_limbs
+from ..kernels.butterfly import pease_stage
 
 MAX_LOG2_FFT = 32
-DIGIT_MIN_LOG = 10  # log_n at and above which the digit-matmul NTT runs
+DIGIT_MIN_LOG = 10  # log_n at and above which the ntt_impl route (digit or fused) runs
 
 
 def twiddle_table_np(spec: FieldSpec, omega: int, log_len: int) -> np.ndarray:
@@ -85,62 +90,111 @@ def get_domain(spec: FieldSpec, log_n: int, inverse: bool = False) -> Domain:
 
 
 def _ntt_impl(f: FieldOps, dom: Domain, x: torch.Tensor) -> torch.Tensor:
-    """Constant-geometry (Pease) decimation-in-frequency radix-2 NTT: every
-    stage butterflies the halves into u = a + b, v = (a - b) * w^e with
-    e = (i >> s) << s, interleaved; natural order in, bit-reversal gather
-    out (``tpu_ec/ops/ntt.py::_ntt_impl``)."""
-    n, log_n = dom.n, dom.log_n
-    if log_n == 0:
+    """Constant-geometry (Pease) decimation-in-frequency radix-2 NTT along
+    axis -2 of x (..., n, L): every stage butterflies the halves into
+    u = a + b, v = (a - b) * w^e with e = (i >> s) << s, interleaved (one
+    kernel-K5 launch over the whole batch); natural order in, bit-reversal
+    gather out (``tpu_ec/ops/ntt.py::_ntt_impl``, the staged run of
+    ``tpu_ec/ops/pallas/ntt.py::PallasFftKernel``)."""
+    if dom.log_n == 0:
         return x
     tw_table = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(x.dtype)
-    half_idx = torch.arange(n // 2, device=x.device)
-    y = x
-    for s in range(log_n):
-        a, b = y[: n // 2], y[n // 2 :]
-        tw = tw_table[(half_idx >> s) << s]
-        u = f.add(a, b)
-        v = f.mul(f.sub(a, b), tw)
-        y = torch.stack([u, v], dim=1).reshape(n, f.L)
-    return y[torch.as_tensor(dom._rev.astype(np.int64), device=x.device)]
+    y = x.contiguous()
+    for s in range(dom.log_n):
+        y = pease_stage(f.spec, y, tw_table, s)
+    return y.index_select(-2, torch.as_tensor(dom._rev.astype(np.int64), device=x.device))
 
 
 class FftKernel:
-    """Field FFT bound to one field and device (``radix_fft``)."""
+    """Field FFT bound to one field and device: ``radix_fft``,
+    ``radix_fft_many`` and ``mul_by_field``."""
 
-    def __init__(self, spec: FieldSpec, device="cpu", maybe_abort=None):
+    def __init__(self, spec: FieldSpec, device="cuda", maybe_abort=None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.f = FieldOps(spec, self.device)
         self.maybe_abort = maybe_abort
-        self._digit_consts = {}
+        self._consts = {}
 
     def _check_abort(self):
         if self.maybe_abort is not None and self.maybe_abort():
             raise Aborted("FFT aborted by hook")
 
-    def radix_fft(self, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-        """NTT of an (n, L) Montgomery batch; returns (n, L) canonical values."""
-        n = x.shape[0]
-        log_n = int(n).bit_length() - 1
-        if 1 << log_n != n:
-            raise ValueError("FFT size must be a power of two")
-        self._check_abort()
-        if log_n >= DIGIT_MIN_LOG:
+    def _large(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+        """log_n >= DIGIT_MIN_LOG: the route config ``ntt_impl`` names."""
+        cfg = get_config()
+        key = (cfg.ntt_impl, log_n, inverse)
+        if cfg.ntt_impl == "digit":
             from .ntt_digit import digit_consts, digit_ntt_planes, get_digit_domain, leaf_log
 
-            key = (log_n, inverse)
-            if key not in self._digit_consts:
+            if key not in self._consts:
                 dom = get_digit_domain(self.spec, log_n, inverse, leaf_log(log_n))
-                self._digit_consts[key] = digit_consts(dom, self.device)
-            y = digit_ntt_planes(
-                self.spec, x.T.contiguous(), inverse, consts=self._digit_consts[key]
-            )
+                self._consts[key] = digit_consts(dom, self.device)
+            y = digit_ntt_planes(self.spec, x.T.contiguous(), inverse, consts=self._consts[key])
             return y.T.contiguous()
+        if cfg.ntt_impl == "fused":
+            from .ntt_fused import fused_consts, fused_ntt, get_fused_domain
+
+            dom = get_fused_domain(self.spec, log_n, inverse)
+            key += (dom.leaf,)
+            if key not in self._consts:
+                self._consts[key] = fused_consts(dom, self.device)
+            return fused_ntt(self.f, dom, x, self._consts[key])
+        raise ValueError(f"unknown ntt_impl {cfg.ntt_impl!r} (digit or fused)")
+
+    def _small(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+        """log_n < DIGIT_MIN_LOG, any batch (..., n, L): the Pease loop."""
         dom = get_domain(self.spec, log_n, inverse)
         y = _ntt_impl(self.f, dom, x)
-        if inverse:
-            y = self.f.mul(y, self.f.constant(dom.n_inv))
-        return y
+        return self.mul_by_field(y, dom.n_inv) if inverse else y
+
+    def radix_fft(self, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+        """NTT of an (n, L) Montgomery batch; returns (n, L) canonical values."""
+        log_n = _log2_size(x.shape[0])
+        self._check_abort()
+        if log_n >= DIGIT_MIN_LOG:
+            return self._large(x, log_n, inverse)
+        return self._small(x, log_n, inverse)
+
+    def radix_fft_many(self, xs, inverse: bool = False):
+        """Batched transform: ``xs`` is (B, n, L) or a list of (n, L).  Below
+        2^DIGIT_MIN_LOG each Pease stage runs over the whole batch in one
+        launch; larger transforms run one at a time, as tpu_ec does."""
+        if isinstance(xs, (list, tuple)):
+            out = []
+            for x in xs:
+                self._check_abort()
+                out.append(self.radix_fft(x, inverse))
+            return out
+        self._check_abort()
+        log_n = _log2_size(xs.shape[1])
+        if log_n >= DIGIT_MIN_LOG:
+            return torch.stack([self.radix_fft(x, inverse) for x in xs])
+        return self._small(xs, log_n, inverse)
+
+    def mul_by_field(self, x: torch.Tensor, scalar) -> torch.Tensor:
+        """Elementwise scale by one field element (kernel K1): ``scalar`` is
+        a Python int or an (L,) Montgomery limb tensor."""
+        if isinstance(scalar, int):
+            scalar = self.f.constant(scalar)
+        return self.f.mul(x, scalar.to(device=x.device, dtype=x.dtype))
+
+
+def _log2_size(n: int) -> int:
+    log_n = int(n).bit_length() - 1
+    if n < 1 or 1 << log_n != n:
+        raise ValueError("FFT size must be a power of two")
+    return log_n
+
+
+def ntt(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Forward NTT of an (n, L) Montgomery batch on ``x``'s device."""
+    return FftKernel(spec, x.device).radix_fft(x)
+
+
+def intt(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of an (n, L) Montgomery batch on ``x``'s device."""
+    return FftKernel(spec, x.device).radix_fft(x, inverse=True)
 
 
 def ntt_ref(spec: FieldSpec, values: list[int], inverse: bool = False) -> list[int]:

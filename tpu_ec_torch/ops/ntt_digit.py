@@ -94,14 +94,15 @@ def _np_mont_mul_chunked(spec, a: np.ndarray, b: np.ndarray, chunk: int = 1 << 1
     )
 
 
-def inter_table288_np(
+def inter_table_np(
     spec: FieldSpec, omega: int, log_n: int, log_m: int, log_n1: int
 ) -> np.ndarray:
-    """(L16, n2, n1) plain-twiddle table scaled by 2^288:
-    T'[k2, j1] = w_m^{k2 j1} * 2^288 mod p  (w_m = omega^(n/m)).
+    """(n2, n1, L) Montgomery table T[k2, j1] = w_m^{k2 j1} of the size-2^log_m
+    level split into n1 = 2^log_n1 columns and n2 rows (w_m = omega^(n/m)).
 
-    Row doubling in Montgomery R-form, then one Montgomery product by
-    C = 2^288 mod p converts: mont(t*R, C) = t * 2^288."""
+    Row doubling: after round t the table holds rows k2 < 2^(t+1);
+    multiplying the existing rows by cur[j1] = w_m^(j1 2^t) appends rows
+    k2 + 2^t."""
     from ..fields.bigint import np_mont_mul
 
     L = spec.n_limbs
@@ -116,10 +117,39 @@ def inter_table288_np(
         ).reshape(table.shape[0], n1, L)
         table = np.concatenate([table, grown], axis=0)
         cur = np_mont_mul(spec, cur, cur)
-    table = table[:n2]
+    return table[:n2]
+
+
+def inter_table288_np(
+    spec: FieldSpec, omega: int, log_n: int, log_m: int, log_n1: int
+) -> np.ndarray:
+    """(L16, n2, n1) plain-twiddle table scaled by 2^288:
+    T'[k2, j1] = w_m^{k2 j1} * 2^288 mod p.  One Montgomery product of the
+    R-form table by C = 2^288 mod p converts: mont(t*R, C) = t * 2^288."""
+    L = spec.n_limbs
+    table = inter_table_np(spec, omega, log_n, log_m, log_n1)
+    n2, n1 = table.shape[:2]
     C = int_to_limbs((1 << (16 * WIDE_LIMBS)) % spec.modulus, L)
     flat = _np_mont_mul_chunked(spec, table.reshape(-1, L), np.broadcast_to(C, (n2 * n1, L)))
     return np.transpose(flat.reshape(n2, n1, L), (2, 0, 1)).copy()
+
+
+def cached_table(spec: FieldSpec, kind: str, key_parts, build):
+    """Disk cache of one constant table under the build directory (the big
+    twiddle tables take seconds of host Montgomery products at 2^20)."""
+    cfg = get_config()
+    if not cfg.cache:
+        return build()
+    d = cfg.cache_dir or cfg.build_dir("tables")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "_".join([spec.name, kind, *map(str, key_parts)]) + ".npy")
+    if os.path.exists(path):
+        return np.load(path)
+    arr = build()
+    tmp = f"{path}.tmp{os.getpid()}.npy"
+    np.save(tmp, arr)
+    os.replace(tmp, path)
+    return arr
 
 
 # ---------------------------------------------------------------------------
@@ -204,28 +234,11 @@ class DigitDomain:
         base, extra = divmod(log_n, k)
         return [base + (1 if i < extra else 0) for i in range(k)]
 
-    def _cached(self, kind, key_parts, build):
-        """Disk cache of one built table under the build directory (the big
-        twiddle tables take seconds of host Montgomery products at 2^20)."""
-        cfg = get_config()
-        if not cfg.cache:
-            return build()
-        d = cfg.cache_dir or cfg.build_dir("tables")
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, "_".join([self.spec.name, kind, *map(str, key_parts)]) + ".npy")
-        if os.path.exists(path):
-            return np.load(path)
-        arr = build()
-        tmp = f"{path}.tmp{os.getpid()}.npy"
-        np.save(tmp, arr)
-        os.replace(tmp, path)
-        return arr
-
     def _leaf(self, lf: int):
         if lf not in self.matrices:
             w_m = pow(self.omega, 1 << (self.log_n - lf), self.spec.modulus)
-            self.matrices[lf] = self._cached(
-                "leafmat", (int(self.inverse), lf, self.d_in),
+            self.matrices[lf] = cached_table(
+                self.spec, "leafmat", (int(self.inverse), lf, self.d_in),
                 lambda: leaf_matrix_np(self.spec, lf, w_m, self.d_in),
             )
 
@@ -234,8 +247,8 @@ class DigitDomain:
         log_rest = self.log_n
         for lf in self.plan[:-1]:
             n1_log = log_rest - lf
-            self.inter[(log_rest, n1_log)] = self._cached(
-                "inter288", (self.log_n, int(self.inverse), log_rest, n1_log),
+            self.inter[(log_rest, n1_log)] = cached_table(
+                self.spec, "inter288", (self.log_n, int(self.inverse), log_rest, n1_log),
                 lambda lr=log_rest, nl=n1_log: inter_table288_np(
                     spec, self.omega, self.log_n, lr, nl
                 ),

@@ -16,6 +16,7 @@ import torch
 
 from ..curves.params import CurveSpec
 from ..fields.fp import FieldOps
+from ..fields.limbs import resolve_device
 from .msm import MultiexpKernel
 from .ntt import FftKernel
 
@@ -23,9 +24,9 @@ from .ntt import FftKernel
 class CommitPipeline:
     """NTT -> from_mont -> MSM against a fixed G1 point table (SRS analog)."""
 
-    def __init__(self, spec: CurveSpec, device="cpu", maybe_abort=None):
+    def __init__(self, spec: CurveSpec, device="cuda", maybe_abort=None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fr = FieldOps(spec.scalar, self.device)
         self.fft = FftKernel(spec.scalar, self.device, maybe_abort=maybe_abort)
         self.msm = MultiexpKernel(spec, self.device, maybe_abort=maybe_abort)
