@@ -8,12 +8,16 @@ Phases, each failing the run on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels (csrc/, one nvcc per source for sm_90a, in
-   parallel) and the native C++ referee (g++), with the seconds each took
-   and the kernels' register and spill counts from ``-Xptxas -v``;
+   parallel) and the native C++ referee (g++), with the seconds each took,
+   the kernels' register and spill counts from ``-Xptxas -v`` and the
+   instruction mix of one 12-word Montgomery product (K1's kernel, from
+   ``cuobjdump -sass``);
 3. kernels: every kernel against its plain PyTorch version on the same card
    tensors, bit-exact, with both times and the bound of its work: K1
    (Montgomery product), K2 (digit-NTT twiddle), K3 (point add / add_mixed
-   / double), K5 (Pease stage, at the stage shape of a 2^9 NTT batch), K4
+   / double on 2^16 rows with identity, P == Q and P == -Q rows, the
+   keep / out= entry, and the Horner combine at the commit's 19 windows of
+   w = 14), K5 (Pease stage, at the stage shape of a 2^9 NTT batch), K4
    (leaf NTT, at the leaf shapes of the 2^n fused plan), K7 (affine denom
    and apply) and K6 (co-Z apply), the last three on 2^16 pairs of valid
    G1 points with identity, P == Q and P == -Q rows (K6 and K7's denom
@@ -22,6 +26,10 @@ Phases, each failing the run on any error:
    Montgomery coefficients and 2^n points k*G, the evaluations checked
    bit-exact against the native C++ NTT and the commitment against the
    native C++ Pippenger; ms per commit, per-stage split, peak memory;
+   then K3 against its plain version, timed and bounded, on the pair
+   engine's own round-0 operands (affine pairs, add_mixed, (W, n/2)) and
+   round-1 operands (Jacobian pairs, add, (W, n/4)), with the keep mask
+   and fused out= rows as the path calls it;
 4b. the fused NTT: ``FftKernel`` with config ``ntt_impl="fused"`` at 2^n on
    phase 4's coefficients (leaf 5 and leaf 8), equal to phase 4's
    evaluations, and its inverse giving the coefficients back; then
@@ -33,7 +41,8 @@ Phases, each failing the run on any error:
    versions on the operands of the MSM's first round, (W, s, L) column
    slices of its fused rows, with their times and bounds; then the device
    time of each hand kernel over one commit and one co-Z MSM
-   (torch.profiler), where the trace has device time;
+   (torch.profiler); a profile that fails or holds no device time fails
+   the run;
 4d. ``affine_add_batch`` (K7's apply half) on the phase-3 pairs, against
    the Jacobian mixed add;
 5. a JSON line of the kernels, the card line again, and the result line.
@@ -50,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -182,7 +192,8 @@ def affine_to_u64(nc, xy):
 # (the second template argument)
 KERNEL_LABELS = (
     ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
-    ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")),
+    ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")), ("horner_kernel", "K3 horner"),
+    ("double_row", "K3 double_row (device function of the adds)"),
     ("ntt_leaf_kernel", "K4 ntt_leaf"), ("pease_stage_kernel", "K5 pease_stage"),
     ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
 )
@@ -201,10 +212,10 @@ def kernel_label(name: str) -> str:
     return name
 
 
-def device_split(fn) -> tuple[dict, float] | None:
+def device_split(fn) -> tuple[dict, float, list] | None:
     """One call of ``fn`` under torch.profiler: ({hand-kernel label: [device
-    ms, launches]}, device-busy ms), or None where the trace holds no
-    device time."""
+    ms, launches]}, device-busy ms, the six largest other device ops as
+    (name, ms, count)), or None where the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,7 +223,7 @@ def device_split(fn) -> tuple[dict, float] | None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split, busy = {}, 0.0
+    split, busy, others = {}, 0.0, []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -224,14 +235,18 @@ def device_split(fn) -> tuple[dict, float] | None:
             split.setdefault(label, [0.0, 0])
             split[label][0] += ms
             split[label][1] += ev.count
-    return (split, busy) if busy > 0 else None
+        else:
+            others.append((ev.key, ms, ev.count))
+    others = sorted(others, key=lambda o: -o[1])[:6]
+    return (split, busy, others) if busy > 0 else None
 
 
 def ptxas_summary(report: str) -> list[str]:
     """One line per kernel: registers and spill bytes from ``-Xptxas -v``."""
     lines, name = [], None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        m = re.search(r"Compiling entry function '([^']+)'", ln) or re.search(
+            r"Function properties for (\S+)", ln)
         if m:
             name = m.group(1)
             continue
@@ -244,6 +259,33 @@ def ptxas_summary(report: str) -> list[str]:
         if m and lines and lines[-1][0] == name and len(lines[-1]) == 2:
             lines[-1].append(f"{m.group(1)} regs")
     return [f"{kernel_label(e[0])}: {', '.join(e[1:][::-1])}" for e in lines]
+
+
+def sass_mix(lib_path: str, kernel: str) -> str:
+    """Instruction counts of one kernel of the built library (cuobjdump
+    -sass): IMAD.WIDE (one 32x32->64 multiply-add, two of mont_imads'
+    IMADs), the other IMADs without IMAD.MOV (a move), IADD3, and all."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
+                         timeout=300)
+    counts, cur = {"wide": 0, "imad": 0, "iadd3": 0, "all": 0}, None
+    for ln in res.stdout.splitlines():
+        if (m := re.search(r"Function : (\S+)", ln)):
+            cur = m.group(1)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m and cur and kernel in cur:
+            op = m.group(1)
+            counts["all"] += 1
+            if op.startswith("IMAD.WIDE"):
+                counts["wide"] += 1
+            elif op.startswith("IMAD") and not op.startswith("IMAD.MOV"):
+                counts["imad"] += 1
+            elif op.startswith("IADD3"):
+                counts["iadd3"] += 1
+    return (f"{counts['wide']} IMAD.WIDE + {counts['imad']} other IMAD (IMAD.MOV not counted) = "
+            f"{2 * counts['wide'] + counts['imad']} IMAD-equivalents, {counts['iadd3']} IADD3, "
+            f"{counts['all']} instructions")
 
 
 def mont_imads(nw: int) -> int:
@@ -335,10 +377,12 @@ def main() -> int:
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
     from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
-    from tpu_ec_torch.kernels.point import point_op, point_op_plain
+    from tpu_ec_torch.kernels.point import horner, horner_plain, point_op, point_op_plain
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
+    from tpu_ec_torch.ops.msm import SCALAR_BITS
     from tpu_ec_torch.ops.msm_coz import _bucket_rows, _pair_up, default_window_size_coz
+    from tpu_ec_torch.ops.msm_pair import _bucket_rows, _pair_round, _unfuse, default_window_size_pair
     from tpu_ec_torch.ops.msm_sorted import _plan_sizes
     from tpu_ec_torch.ops.ntt import FftKernel, get_domain
     from tpu_ec_torch.ops.ntt_digit import digit_consts, get_digit_domain, leaf_log
@@ -372,6 +416,9 @@ def main() -> int:
     print(f"build: kernels {t_build:.1f} s (0 = already built), native {t_native:.1f} s", flush=True)
     for ln in ptxas_summary(build.ptxas_report()):
         print(f"ptxas: {ln}", flush=True)
+    print(f"sass: K1 mont_mul<12> (one 12-word product, its loads and stores): "
+          f"{sass_mix(build.library_path(), 'mont_mul_kernelILi12E')}; mont_imads(12) = {mont_imads(12)}",
+          flush=True)
 
     def check(name, label, got, want, k_ms, p_ms, **bound):
         bad, err = mismatch(got, want)
@@ -453,13 +500,28 @@ def main() -> int:
     A[1][3] = sub_borrow(p_fq, PA[1][3].to(torch.int64))[0].to(torch.int32)
     for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("double", [*P])):
         plain = lambda: chunked(lambda *c: point_op_plain(BLS12_381_FQ, op, list(c)), *ins)
-        bound = {}
-        if op == "add_mixed":
-            # 11 products a row, none where an operand is the identity
-            live = int(((P[2] != 0).any(-1) & ((A[0] != 0) | (A[1] != 0)).any(-1)).sum())
-            bound = dict(nbytes=8 * npts * L_fq * 4, imads=live * 11 * mont_imads(L_fq // 2))
         check("point", f"K3 {op} n={npts}", point_op(BLS12_381_FQ, op, ins), plain(),
-              cuda_ms(lambda: point_op(BLS12_381_FQ, op, ins)), cuda_ms(plain, iters=1), **bound)
+              cuda_ms(lambda: point_op(BLS12_381_FQ, op, ins)), cuda_ms(plain, iters=1))
+    # the keep / out= entry: where(keep, P, P + Q) into fused rows
+    keep16 = torch.zeros(npts, dtype=torch.bool, device=dev)
+    keep16[::3] = True
+    fused16 = torch.empty((npts, 3 * L_fq), dtype=torch.int32, device=dev)
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("add_mixed", [*PA, *A])):
+        kern = lambda: point_op(BLS12_381_FQ, op, ins, keep=keep16, out=fused16)
+        plain = lambda: chunked(lambda kk, *c: point_op_plain(BLS12_381_FQ, op, list(c), kk), keep16, *ins)
+        check("point", f"K3 {op}{' (P affine)' if len(ins) == 4 else ''} keep + out= n={npts}",
+              kern(), plain(), cuda_ms(kern), cuda_ms(plain, iters=1))
+    # the Horner combine at the commit's shape: 19 window sums, w = 14
+    wp = default_window_size_pair(n)
+    nwin = -(-SCALAR_BITS // wp)
+    S = [c[8 : 8 + nwin] for c in P]
+    want, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, wp))
+    h_ms = cuda_ms(lambda: horner(BLS12_381_FQ, S, wp))
+    horner_bound = (nwin * wp * 7 + nwin * 16) * mont_imads(L_fq // 2) / imad_rate * 1e3
+    check("point", f"K3 horner ({nwin}, {L_fq}) w={wp}", horner(BLS12_381_FQ, S, wp), want, h_ms, p_ms)
+    print(f"K3 horner: {h_ms:.4f} ms, bound {horner_bound:.4f} ms (operations; one thread, the "
+          f"{nwin * wp} doublings and {nwin} adds in series), ms / bound {h_ms / horner_bound:.1f} | {card}",
+          flush=True)
 
     # K5 at the stage shape of a 2^9 NTT batch (radix_fft_many, phase 4b)
     nb = max(1, n >> 9)
@@ -565,6 +627,45 @@ def main() -> int:
           f"ntt {stage['ntt']:.2f} ms, from_mont {stage['from_mont']:.3f} ms, msm {stage['msm']:.1f} ms; "
           f"peak {peak / 2**30:.2f} GiB | {card}", flush=True)
 
+    # K3 on the pair engine's round-0 and round-1 operands, built with the
+    # engine's own code, with the keep mask and fused out= rows as the path
+    # calls it
+    key, data = _bucket_rows(pipe.ops, bases, torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1), wp)
+    W = key.shape[0]
+    for rnd, op, k in ((0, "add_mixed", 2), (1, "add", 3)):
+        s_half = key.shape[1] // 2
+        kp = key.reshape(W, s_half, 2)
+        keep = kp[..., 0] != kp[..., 1]
+        dp = data.reshape(W, s_half, 2, data.shape[-1])
+        ins = [*_unfuse(dp[:, :, 0], L_fq, k), *_unfuse(dp[:, :, 1], L_fq, k)]
+        out = torch.empty((W, s_half, 3 * L_fq), dtype=torch.int32, device=dev)
+        kern = lambda: point_op(BLS12_381_FQ, op, ins, keep=keep, out=out)
+        got = tuple(c.clone() for c in kern())
+        want, p_ms = cuda_ms_once(lambda: chunked(
+            lambda kk, *c: point_op_plain(BLS12_381_FQ, op, list(c), kk), keep, *ins,
+            axis=1, rows=max(1, CHUNK // W)))
+        # the rows that add: keys equal and both operands finite
+        if k == 2:
+            fin = [((c[0] != 0) | (c[1] != 0)).any(-1) for c in (ins[:2], ins[2:])]
+        else:
+            fin = [(ins[2] != 0).any(-1), (ins[5] != 0).any(-1)]
+        n_add = int((~keep & fin[0] & fin[1]).sum())
+        rows = W * s_half
+        nbytes = rows * (k + 3) * L_fq * 4 + int((~keep).sum()) * k * L_fq * 4 + rows
+        imads = n_add * (11 if k == 2 else 16) * mont_imads(L_fq // 2)
+        k_ms = cuda_ms(kern)
+        check("point", f"K3 {op} round {rnd} ({W}, {s_half}, {L_fq}), {n_add} adding rows, keep + out=",
+              got, want, k_ms, p_ms, **(dict(nbytes=nbytes, imads=imads) if rnd == 1 else {}))
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, imads / imad_rate * 1e3
+        print(f"K3 {op} round {rnd}: {k_ms:.4f} ms, bound {max(t_b, t_o):.4f} ms "
+              f"({'bytes' if t_b >= t_o else 'operations'}), ms / bound {k_ms / max(t_b, t_o):.2f} | {card}",
+              flush=True)
+        del want, got
+        if rnd == 0:
+            key, data, _, _ = _pair_round(pipe.ops, key, data, affine=True,
+                                          spill_cap=min(s_half, (1 << (wp - 1)) + 2))
+    del key, data, kp, keep, dp, ins, out
+
     # 4b. the fused NTT (config ntt_impl="fused") on phase 4's coefficients
     cfg = get_config()
     default_leaf = cfg.ntt_leaf_log
@@ -662,18 +763,14 @@ def main() -> int:
     # device time of each hand kernel over one commit and one co-Z MSM
     for label, fn in (("commit", lambda: pipe.commit(coeffs, bases)),
                       ("co-Z MSM", lambda: msm.multiexp(bases, scalars, method="coz"))):
-        try:
-            got = device_split(fn)
-        except Exception as e:  # the profile informs; the checks above decide
-            got, why = None, f"{type(e).__name__}: {e}"
-        else:
-            why = "the trace holds no device time"
+        got = device_split(fn)
         if got is None:
-            print(f"profile {label}: not measured ({why})", flush=True)
-            continue
-        split, busy = got
+            raise SystemExit(f"profile {label}: the trace holds no device time")
+        split, busy, others = got
         parts = ", ".join(f"{k} {v[0]:.2f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
         print(f"profile {label}: device busy {busy:.2f} ms; hand kernels {parts} | {card}", flush=True)
+        print(f"profile {label}: largest other device ops: "
+              + "; ".join(f"{name[:60]} {ms:.2f} ms in {cnt}" for name, ms, cnt in others), flush=True)
 
     # 4d. affine_add_batch (K7 apply) on the phase-3 pairs vs the Jacobian add
     ops = pipe.ops

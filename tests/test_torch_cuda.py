@@ -67,7 +67,7 @@ def test_inter_kernel_matches_plain(cuda, canonical, const_t):
 
 def _points(ops, n):
     """k*G for k = 1..n (affine), and Jacobian forms with z != 1."""
-    g = ops.from_affine_ints([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    g = ops.from_affine_ints([(ops.spec.gen_x, ops.spec.gen_y)])
     acc = [ops.to_jacobian(g)]
     for _ in range(n - 1):
         acc.append(ops.add_mixed(acc[-1], g))
@@ -75,28 +75,71 @@ def _points(ops, n):
     return ops.to_affine(jac), ops.double(jac)
 
 
-def test_point_kernel_matches_plain(cuda):
-    ops = PointOps(BLS12_381_G1, cuda)
-    A, P = _points(ops, 40)
-    A2, Q = _points(ops, 41)
-    A2 = tuple(c[1:].clone() for c in A2)
-    Q = tuple(c[1:].clone() for c in Q)
+def _point_rows(ops, n=40):
+    """P, Q (Jacobian) and A (affine) with the select tree's rows: 0 P =
+    identity, 1 Q = A = identity, 2 Q == P and A == P, 3 Q == -P and
+    A == -P, 4 both identity, 5 coordinates 0 and p - 1 (no curve point)."""
+    A, P = _points(ops, n)
+    A2, Q = _points(ops, n + 1)
+    A2 = [c[1:].clone() for c in A2]
+    Q = [c[1:].clone() for c in Q]
+    P = [c.clone() for c in P]
+    PA = ops.to_affine(tuple(c[2:4] for c in P))
     for c in P:
-        c[0] = 0  # identity
+        c[0] = 0
+        c[4] = 0
     for c in Q:
         c[1] = 0
+        c[4] = 0
     for c in A2:
         c[1] = 0
+        c[4] = 0
     for k in range(3):
-        Q[k][2] = P[k][2]  # P == Q
+        Q[k][2] = P[k][2]
     for k in range(2):
-        A2[k][2] = ops.to_affine(tuple(c[2:3] for c in P))[k][0]  # A == P
-    Q[1][3] = ops.F.neg(P[1][3:4])[0]  # P == -Q
+        A2[k][2] = PA[k][0]
+    Q[1][3] = ops.F.neg(P[1][3:4])[0]
     Q[0][3], Q[2][3] = P[0][3], P[2][3]
-    spec = BLS12_381_G1.base
-    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A2]), ("double", [*P])):
-        got, want = point_op(spec, op, ins), point_op_plain(spec, op, ins)
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), op
+    A2[0][3] = PA[0][1]
+    A2[1][3] = ops.F.neg(PA[1][1:2])[0]
+    pm1 = torch.tensor([((ops.spec.base.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(ops.L)],
+                       dtype=torch.int32, device=P[0].device)
+    P[0][5], P[1][5], P[2][5] = pm1, 0, pm1
+    Q[0][5], Q[1][5], Q[2][5] = 0, pm1, pm1
+    A2[0][5], A2[1][5] = pm1, pm1
+    return P, Q, A2
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
+def test_point_kernel_matches_plain(cuda, curve):
+    from tpu_ec_torch import curves
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, Q, A = _point_rows(ops)
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("double", [*P]),
+                    ("add_mixed", [*P[:2], *A])):  # affine P, lifted
+        got, want = point_op(spec.base, op, ins), point_op_plain(spec.base, op, ins)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (op, len(ins))
+
+
+@pytest.mark.parametrize("op", ["add", "add_mixed"])
+def test_point_kernel_keep_and_out(cuda, op):
+    """keep + out= (the pair MSM's fused rows) == where(keep, P, P + Q)
+    written into separate outputs."""
+    ops = PointOps(BLS12_381_G1, cuda)
+    P, Q, A = _point_rows(ops)
+    ins = [*P, *Q] if op == "add" else [*P[:2], *A]
+    n, L = P[0].shape[0], ops.L
+    keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+    keep[::3] = True
+    fused = torch.full((n, 3 * L), -1, dtype=torch.int32, device=cuda)
+    got = point_op(BLS12_381_G1.base, op, ins, keep=keep, out=fused)
+    plain = point_op_plain(BLS12_381_G1.base, op, ins, keep)
+    Pj = ins[:3] if op == "add" else ops.to_jacobian(tuple(ins[:2]))
+    want = tuple(torch.where(keep.unsqueeze(-1), p, r) for p, r in zip(Pj, point_op(BLS12_381_G1.base, op, ins)))
+    assert all(torch.equal(g, w) and torch.equal(g, q) for g, w, q in zip(got, want, plain))
+    assert torch.equal(fused, torch.cat(want, dim=1))
 
 
 def test_point_kernel_row_strides(cuda):
@@ -109,6 +152,40 @@ def test_point_kernel_row_strides(cuda):
     got = point_op(BLS12_381_G1.base, "double", views)
     want = point_op(BLS12_381_G1.base, "double", [v.contiguous() for v in views])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_point_kernel_unaligned_rows(cuda):
+    """Rows that are not 16-byte aligned take the kernel's scalar loads and
+    stores and give the same result."""
+    ops = PointOps(BLS12_381_G1, cuda)
+    P, Q, _ = _point_rows(ops)
+    n, L = P[0].shape[0], ops.L
+    src = torch.zeros((n, 6 * L + 1), dtype=torch.int32, device=cuda)
+    for k, c in enumerate([*P, *Q]):
+        src[:, 1 + k * L : 1 + (k + 1) * L] = c
+    views = [src[:, 1 + k * L : 1 + (k + 1) * L] for k in range(6)]
+    dst = torch.zeros((n, 3 * L + 1), dtype=torch.int32, device=cuda)
+    got = point_op(BLS12_381_G1.base, "add", views, out=dst[:, 1:])
+    want = point_op_plain(BLS12_381_G1.base, "add", [*P, *Q])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
+def test_horner_kernel_matches_loop(cuda, curve):
+    """One Horner launch == the loop of batched doubles and adds, with an
+    identity window, for w > 0 and w = 0."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import horner, horner_plain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    _, P = _points(ops, 7)
+    S = [c.clone() for c in P]
+    for c in S:
+        c[3] = 0
+    for w in (4, 0):
+        got = horner(spec.base, S, w)
+        assert all(torch.equal(g, h) for g, h in zip(got, horner_plain(spec.base, S, w))), w
 
 
 def test_commit_matches_native(cuda):

@@ -20,7 +20,8 @@ from tpu_ec.curves.point import point_ops as j_point_ops
 from tpu_ec_torch.convert import points_to_numpy, points_to_torch
 from tpu_ec_torch.curves import BLS12_381_G1, PointOps
 from tpu_ec_torch.errors import DeviceError
-from tpu_ec_torch.kernels.point import point_op
+from tpu_ec_torch.fields import params as tfp
+from tpu_ec_torch.kernels.point import horner, point_op
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +40,7 @@ def batch():
     P = jops.add_mixed(jops.double(jops.to_jacobian(A1)), A1)  # z != 1
     Q = jops.to_jacobian(A2)
     P2 = jops.add_mixed(jops.double(jops.to_jacobian(A2)), A2)  # Q's point, other z
-    return jops, PointOps(BLS12_381_G1, "cpu"), [tuple(map(np.asarray, t)) for t in (P, Q, A2, P2)]
+    return jops, PointOps(BLS12_381_G1, "cpu"), [tuple(map(np.asarray, t)) for t in (P, Q, A2, P2, A1)]
 
 
 def _same(got, want):
@@ -47,24 +48,24 @@ def _same(got, want):
 
 
 def test_add(batch):
-    jops, tops, (P, Q, _, P2) = batch
+    jops, tops, (P, Q, _, P2, _) = batch
     assert _same(tops.add(points_to_torch(P, "cpu"), points_to_torch(Q, "cpu")), jops.add(P, Q))
     # P == Q with different Jacobian representations takes the doubling
     assert _same(tops.add(points_to_torch(Q, "cpu"), points_to_torch(P2, "cpu")), jops.add(Q, P2))
 
 
 def test_add_mixed(batch):
-    jops, tops, (P, _, A2, _) = batch
+    jops, tops, (P, _, A2, _, _) = batch
     assert _same(tops.add_mixed(points_to_torch(P, "cpu"), points_to_torch(A2, "cpu")), jops.add_mixed(P, A2))
 
 
 def test_double(batch):
-    jops, tops, (P, _, _, _) = batch
+    jops, tops, (P, _, _, _, _) = batch
     assert _same(tops.double(points_to_torch(P, "cpu")), jops.double(P))
 
 
 def test_to_affine(batch):
-    jops, tops, (P, _, _, _) = batch
+    jops, tops, (P, _, _, _, _) = batch
     assert _same(tops.to_affine(points_to_torch(P, "cpu")), jops.to_affine(P))
 
 
@@ -78,3 +79,60 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     c = torch.zeros((4, 24), dtype=torch.int32, device="meta")
     with pytest.raises(DeviceError):
         point_op(BLS12_381_G1.base, "double", [c, c, c])
+
+
+def _keep_mask(n):
+    keep = np.zeros(n, dtype=bool)
+    keep[::3] = True
+    keep[2] = False  # the P == Q row adds
+    return keep
+
+
+@pytest.mark.parametrize("op", ["add", "add_mixed", "add_mixed_affine"])
+def test_keep_and_out(batch, op):
+    """The keep / out= entry (the pair MSM's fused rows): where(keep, P,
+    P + Q) written side by side into out, against tpu_ec's point ops."""
+    jops, tops, (P, Q, A2, _, A1) = batch
+    n, L = P[0].shape[0], tops.L
+    keep = _keep_mask(n)
+    if op == "add":
+        Pj, want = P, jops.add(P, Q)
+        got_in = (points_to_torch(P, "cpu"), points_to_torch(Q, "cpu"))
+    elif op == "add_mixed":
+        Pj, want = P, jops.add_mixed(P, A2)
+        got_in = (points_to_torch(P, "cpu"), points_to_torch(A2, "cpu"))
+    else:  # P affine, lifted to Jacobian in the op
+        Pj = tuple(map(np.asarray, jops.to_jacobian(A1)))
+        want = jops.add_mixed(Pj, A2)
+        got_in = (points_to_torch(A1, "cpu"), points_to_torch(A2, "cpu"))
+    want = tuple(np.where(keep[:, None], p, np.asarray(w)) for p, w in zip(Pj, want))
+    out = torch.full((n, 3 * L), -1, dtype=got_in[0][0].dtype)
+    f = tops.add if op == "add" else tops.add_mixed
+    got = f(*got_in, keep=torch.as_tensor(keep), out=out)
+    assert _same(got, want)
+    assert np.array_equal(out.numpy(), np.concatenate(want, axis=1))
+
+
+def test_horner_matches_tpu_ec(batch):
+    """The Horner window combine (one K3 launch on the card; its plain loop
+    here) against tpu_ec/ops/msm_pair.py::horner_combine on 4 windows, one
+    of them the identity."""
+    from tpu_ec.ops.msm_pair import horner_combine
+
+    jops, tops, (P, _, _, _, _) = batch
+    S = tuple(np.array(c[5:9]) for c in P)
+    S[2][1] = 0  # window 1 = identity
+    want = horner_combine(jops, S, 3)
+    assert _same(horner(BLS12_381_G1.base, points_to_torch(S, "cpu"), 3), want)
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FQ", "BN254_FQ"])
+def test_lazy_reduction_headroom(name):
+    """K3 carries values in [0, 2p) and multiplies them without the final
+    subtraction; that needs 4p < R = 2^(32 NW) (the product of two values
+    below 2p is then (ab + Mp) / R < 2p, and a sum of two stays below R)."""
+    spec = getattr(tfp, name)
+    nw = spec.n_limbs // 2
+    assert 4 * spec.modulus < 1 << (32 * nw)
+    assert spec.r == 1 << (32 * nw)
+

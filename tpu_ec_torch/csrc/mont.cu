@@ -8,10 +8,10 @@
 // of traffic, far above the card's ops-per-byte balance.
 //
 // Simple design: one thread per element, the element's words in registers,
-// word-serial CIOS (field.cuh) with 64-bit carry accumulators, then one
-// conditional subtract.  Each thread reads its 2*NW int32 half-limbs
-// directly (strided, not coalesced); PTX carry chains, warp-cooperative
-// products and coalesced staging are later work.
+// field.cuh's even/odd carry-chain CIOS, then one conditional subtract.
+// Each thread reads its 2*NW int32 half-limbs with 128-bit loads where the
+// row is 16-byte aligned; warp-cooperative products and coalesced staging
+// are later work.
 #include "field.cuh"
 
 namespace {

@@ -1,24 +1,33 @@
-// K3: batched Jacobian point ops over a short-Weierstrass a = 0 curve.
+// K3: batched Jacobian point ops over a short-Weierstrass a = 0 curve, and
+// the Horner window combine of the pair MSM.
 //
 // Replaces tpu_ec/ops/pallas/point.py:_point_call_list (and _point_call;
 // entries jac_add, jac_add_mixed, jac_double): add-2007-bl, madd-2007-bl and
 // dbl-2009-l with the completeness select tree of
 // tpu_ec/ops/pallas/point.py:_add_body/_add_mixed_body (identity, P == Q,
-// P == -Q).  Every field op returns canonical values, so the Jacobian
-// outputs are bit-identical to tpu_ec's PointOps, not merely the same point.
+// P == -Q).  The Horner entry runs tpu_ec/ops/msm_pair.py:horner_combine
+// (w doublings and one add a window, top window first) in one launch with
+// the same device functions.  Every stored value is canonical, so the
+// Jacobian outputs are bit-identical to tpu_ec's PointOps, not merely the
+// same point.
 //
-// Bound on the H100: integer-ALU.  An add is 16 field products of 288
-// multiply-adds each for BLS12-381 (about 4,600 per point) against
-// 9 * 48 = 432 bytes of traffic.
+// Bound on the H100: integer-ALU.  An add is 16 field products (11 for the
+// mixed add) of about 600 IMADs each for BLS12-381 against 9 * 96 bytes of
+// half-limb traffic.
 //
-// Simple design: one thread per point, the coordinates and every temporary
-// in registers (12 words per element, ~15 live elements: up to 250
-// registers a thread, which limits occupancy), field.cuh's CIOS for the
-// products.  Where the TPU computed every branch
-// and selected, each thread branches on its own case, which gives the same
-// values: identity inputs return at once, and the doubling runs only on
-// P == Q rows.  Coordinates are read with a row stride so that callers can
-// pass column slices of one fused (n, 3L) row matrix without a copy.
+// Design.  One thread per point.  Inside a formula values are reduced
+// lazily, in [0, 2p) (field.cuh *_lazy), and made canonical before every
+// zero test and every store.  The formulas are ordered so that few field
+// elements are live at once, and the operands are read from memory at their
+// first use (MemPoint), so a coordinate is not held in registers through
+// the formula; the rare P == Q doubling of the adds runs in a separate
+// non-inlined function that reads P again.  That keeps the point kernel
+// within __launch_bounds__(128, 4): at most 128 registers, 16 warps an SM.
+// Coordinates are read with row strides (column slices of one fused row
+// matrix need no copy) by 128-bit loads where a row is 16-byte aligned.
+// The adds take an optional per-row keep mask (copy P, lifted to Jacobian,
+// instead of adding: where(~keep, P + Q, P)), and the mixed add an affine
+// P (z omitted), so the pair MSM writes its fused rows directly.
 #include "field.cuh"
 
 namespace {
@@ -27,145 +36,285 @@ using tec::Fe;
 using tec::FieldConsts;
 
 constexpr int kAdd = 0, kAddMixed = 1, kDouble = 2;
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
 
 struct PointArgs {
-  const int32_t* in[6];
+  const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
   long long in_stride[6];
+  const uint8_t* keep;   // per row: copy P instead of adding; null: add every row
   int32_t* out[3];
   long long out_stride;
   long long n;
 };
 
-// dbl-2009-l (ec.cl:17-42); identity-safe: Z3 = 2*Y*Z = 0.
+// A point operand read from device memory at each use: coordinates k,
+// k + 1, k + 2 of the kernel's arguments at row i, each address formed
+// where it is read (the arguments stay in the parameter space, so no row
+// pointer holds registers).  A null z pointer: an affine point (x, y)
+// lifted to Jacobian, z = 1 (R mod p) or 0 for (0, 0).
 template <int NW>
+struct MemPoint {
+  const PointArgs& a;
+  int k;
+  long long i;
+  __device__ __forceinline__ Fe<NW> at(int c) const {
+    return tec::load_fe<NW>(a.in[k + c] + i * a.in_stride[k + c]);
+  }
+  __device__ __forceinline__ Fe<NW> X() const { return at(0); }
+  __device__ __forceinline__ Fe<NW> Y() const { return at(1); }
+  __device__ __forceinline__ Fe<NW> Z(const FieldConsts& fc) const {
+    if (a.in[k + 2]) return at(2);
+    return tec::fe_is_zero<NW>(X()) && tec::fe_is_zero<NW>(Y()) ? tec::fe_zero<NW>()
+                                                                : tec::fe_const<NW>(fc.one);
+  }
+};
+
+// A point operand held in registers (the Horner accumulator).
+template <int NW>
+struct RegPoint {
+  Fe<NW> x, y, z;
+  __device__ __forceinline__ Fe<NW> X() const { return x; }
+  __device__ __forceinline__ Fe<NW> Y() const { return y; }
+  __device__ __forceinline__ Fe<NW> Z(const FieldConsts&) const { return z; }
+};
+
+// Where an op's result goes, one coordinate at a time as soon as it is
+// final (canonical): device memory (MemOut), so it leaves the registers at
+// once, or registers (RegOut, the Horner accumulator).
+template <int NW>
+struct MemOut {
+  const PointArgs& a;
+  long long i;
+  __device__ __forceinline__ void put(int c, const Fe<NW>& v) const {
+    tec::store_fe<NW>(a.out[c] + i * a.out_stride, v);
+  }
+  __device__ __forceinline__ void X(const Fe<NW>& v) const { put(0, v); }
+  __device__ __forceinline__ void Y(const Fe<NW>& v) const { put(1, v); }
+  __device__ __forceinline__ void Z(const Fe<NW>& v) const { put(2, v); }
+};
+
+template <int NW>
+struct RegOut {
+  RegPoint<NW>& r;
+  __device__ __forceinline__ void X(const Fe<NW>& v) const { r.x = v; }
+  __device__ __forceinline__ void Y(const Fe<NW>& v) const { r.y = v; }
+  __device__ __forceinline__ void Z(const Fe<NW>& v) const { r.z = v; }
+};
+
+// dbl-2009-l (ec.cl:17-42); identity-safe: Z3 = 2*Y*Z = 0.
+template <int NW, class Out>
 __device__ __forceinline__ void dbl(const Fe<NW>& X, const Fe<NW>& Y, const Fe<NW>& Z,
-                                    Fe<NW>& X3, Fe<NW>& Y3, Fe<NW>& Z3, const FieldConsts& fc) {
+                                    const Out& out, const FieldConsts& fc) {
   using namespace tec;
-  Fe<NW> A = fe_sqr<NW>(X, fc);
-  Fe<NW> B = fe_sqr<NW>(Y, fc);
-  Fe<NW> C = fe_sqr<NW>(B, fc);
-  Fe<NW> D = fe_dbl<NW>(
-      fe_sub<NW>(fe_sub<NW>(fe_sqr<NW>(fe_add<NW>(X, B, fc), fc), A, fc), C, fc), fc);
-  Fe<NW> E = fe_add<NW>(fe_dbl<NW>(A, fc), A, fc);
-  Fe<NW> FF = fe_sqr<NW>(E, fc);
-  X3 = fe_sub<NW>(FF, fe_dbl<NW>(D, fc), fc);
-  Fe<NW> eightC = fe_dbl<NW>(fe_dbl<NW>(fe_dbl<NW>(C, fc), fc), fc);
-  Y3 = fe_sub<NW>(fe_mul<NW>(E, fe_sub<NW>(D, X3, fc), fc), eightC, fc);
-  Z3 = fe_dbl<NW>(fe_mul<NW>(Y, Z, fc), fc);
+  out.Z(fe_canon<NW>(fe_dbl_lazy<NW>(fe_mul_lazy<NW>(Y, Z, fc), fc), fc));
+  Fe<NW> A = fe_sqr_lazy<NW>(X, fc);
+  Fe<NW> B = fe_sqr_lazy<NW>(Y, fc);
+  Fe<NW> D = fe_sub_lazy<NW>(fe_sqr_lazy<NW>(fe_add_lazy<NW>(X, B, fc), fc), A, fc);
+  Fe<NW> C = fe_sqr_lazy<NW>(B, fc);
+  D = fe_dbl_lazy<NW>(fe_sub_lazy<NW>(D, C, fc), fc);
+  Fe<NW> E = fe_add_lazy<NW>(fe_dbl_lazy<NW>(A, fc), A, fc);
+  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(E, fc), fe_dbl_lazy<NW>(D, fc), fc), fc);
+  Fe<NW> eightC = fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(C, fc), fc), fc);
+  out.Y(fe_canon<NW>(
+      fe_sub_lazy<NW>(fe_mul_lazy<NW>(E, fe_sub_lazy<NW>(D, X3, fc), fc), eightC, fc), fc));
+  out.X(X3);
+}
+
+// add-2007-bl (ec.cl:85-120) with the select tree of PointOps.add: P
+// identity -> Q, else Q identity -> P, else P == Q -> returns false and
+// leaves the doubling of P to the caller.
+template <int NW, class SP, class SQ, class Out>
+__device__ __forceinline__ bool add_core(const SP& P, const SQ& Q, const Out& out,
+                                         const FieldConsts& fc) {
+  using namespace tec;
+  const Fe<NW> Z1 = P.Z(fc);
+  const Fe<NW> Z2 = Q.Z(fc);
+  if (fe_is_zero<NW>(Z1)) {
+    out.X(Q.X()); out.Y(Q.Y()); out.Z(Z2);
+    return true;
+  }
+  if (fe_is_zero<NW>(Z2)) {
+    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
+    return true;
+  }
+  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H is formed as 2 * (Z1 * Z2) * H:
+  // the same residue with the same number of products, and stored
+  // canonical the same value.  Z1 * Z2 comes first, then the Z2 chain (U1,
+  // S1), then Z1's, so that few elements are live at once.
+  Fe<NW> Z1Z2 = fe_mul_lazy<NW>(Z1, Z2, fc);
+  Fe<NW> Z2Z2 = fe_sqr_lazy<NW>(Z2, fc);
+  Fe<NW> S1 = fe_mul_lazy<NW>(Z2, Z2Z2, fc);
+  Fe<NW> U1 = fe_mul_lazy<NW>(P.X(), Z2Z2, fc);
+  S1 = fe_mul_lazy<NW>(P.Y(), S1, fc);
+  Fe<NW> Z1Z1 = fe_sqr_lazy<NW>(Z1, fc);
+  Fe<NW> Z1c = fe_mul_lazy<NW>(Z1, Z1Z1, fc);
+  Fe<NW> H = fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(Q.X(), Z1Z1, fc), U1, fc), fc);
+  Fe<NW> rr = fe_canon<NW>(
+      fe_dbl_lazy<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(Q.Y(), Z1c, fc), S1, fc), fc), fc);
+  if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) return false;
+  out.Z(fe_canon<NW>(fe_mul_lazy<NW>(fe_dbl_lazy<NW>(Z1Z2, fc), H, fc), fc));
+  Fe<NW> I = fe_sqr_lazy<NW>(fe_dbl_lazy<NW>(H, fc), fc);
+  Fe<NW> J = fe_mul_lazy<NW>(H, I, fc);
+  Fe<NW> V = fe_mul_lazy<NW>(U1, I, fc);
+  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(rr, fc), J, fc),
+                                           fe_dbl_lazy<NW>(V, fc), fc), fc);
+  out.Y(fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(rr, fe_sub_lazy<NW>(V, X3, fc), fc),
+                                     fe_dbl_lazy<NW>(fe_mul_lazy<NW>(S1, J, fc), fc), fc), fc));
+  out.X(X3);
+  return true;
+}
+
+// madd-2007-bl (ec.cl:45-82) with the select tree of PointOps.add_mixed;
+// A = (x2, y2) affine, (0, 0) = identity.  Returns false where P == Q.
+template <int NW, class SP, class SA, class Out>
+__device__ __forceinline__ bool add_mixed_core(const SP& P, const SA& A, const Out& out,
+                                               const FieldConsts& fc) {
+  using namespace tec;
+  const Fe<NW> Z1 = P.Z(fc);
+  const bool i2 = fe_is_zero<NW>(A.X()) && fe_is_zero<NW>(A.Y());
+  if (fe_is_zero<NW>(Z1)) {
+    out.X(A.X()); out.Y(A.Y());
+    out.Z(i2 ? fe_zero<NW>() : fe_const<NW>(fc.one));
+    return true;
+  }
+  if (i2) {
+    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
+    return true;
+  }
+  // Z3 = (Z1 + H)^2 - Z1Z1 - HH is formed as 2 * Z1 * H: the same
+  // residue and product count, and Z1Z1 need not live until the end.
+  Fe<NW> Z1Z1 = fe_sqr_lazy<NW>(Z1, fc);
+  Fe<NW> H = fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(A.X(), Z1Z1, fc), P.X(), fc), fc);
+  Fe<NW> rr = fe_canon<NW>(fe_dbl_lazy<NW>(
+      fe_sub_lazy<NW>(fe_mul_lazy<NW>(A.Y(), fe_mul_lazy<NW>(Z1, Z1Z1, fc), fc), P.Y(), fc), fc), fc);
+  if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) return false;
+  out.Z(fe_canon<NW>(fe_dbl_lazy<NW>(fe_mul_lazy<NW>(Z1, H, fc), fc), fc));
+  Fe<NW> I = fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(fe_sqr_lazy<NW>(H, fc), fc), fc);
+  Fe<NW> J = fe_mul_lazy<NW>(H, I, fc);
+  Fe<NW> V = fe_mul_lazy<NW>(P.X(), I, fc);
+  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(rr, fc), J, fc),
+                                           fe_dbl_lazy<NW>(V, fc), fc), fc);
+  out.Y(fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(rr, fe_sub_lazy<NW>(V, X3, fc), fc),
+                                     fe_dbl_lazy<NW>(fe_mul_lazy<NW>(P.Y(), J, fc), fc), fc), fc));
+  out.X(X3);
+  return true;
+}
+
+// The P == Q rows of the adds: rare, so kept out of the adds' code and
+// register allocation; P is read again from memory.
+template <int NW>
+__device__ __noinline__ void double_row(const PointArgs* a, long long i, const FieldConsts* fc) {
+  const MemPoint<NW> P{*a, 0, i};
+  dbl<NW>(P.X(), P.Y(), P.Z(*fc), MemOut<NW>{*a, i}, *fc);
 }
 
 template <int NW, int OP>
-__global__ void point_kernel(PointArgs args, FieldConsts fc) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    point_kernel(const __grid_constant__ PointArgs args, const __grid_constant__ FieldConsts fc) {
   using namespace tec;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= args.n) return;
-  Fe<NW> X1 = load_fe<NW>(args.in[0] + i * args.in_stride[0]);
-  Fe<NW> Y1 = load_fe<NW>(args.in[1] + i * args.in_stride[1]);
-  Fe<NW> Z1 = load_fe<NW>(args.in[2] + i * args.in_stride[2]);
-  Fe<NW> X3, Y3, Z3;
+  const MemOut<NW> out{args, i};
+  const MemPoint<NW> P{args, 0, i};
+  bool done = true;
   if (OP == kDouble) {
-    dbl<NW>(X1, Y1, Z1, X3, Y3, Z3, fc);
+    dbl<NW>(P.X(), P.Y(), P.Z(fc), out, fc);
+  } else if (args.keep && args.keep[i]) {
+    out.X(P.X()); out.Y(P.Y()); out.Z(P.Z(fc));
   } else if (OP == kAdd) {
-    Fe<NW> X2 = load_fe<NW>(args.in[3] + i * args.in_stride[3]);
-    Fe<NW> Y2 = load_fe<NW>(args.in[4] + i * args.in_stride[4]);
-    Fe<NW> Z2 = load_fe<NW>(args.in[5] + i * args.in_stride[5]);
-    if (fe_is_zero<NW>(Z1)) {
-      X3 = X2; Y3 = Y2; Z3 = Z2;
-    } else if (fe_is_zero<NW>(Z2)) {
-      X3 = X1; Y3 = Y1; Z3 = Z1;
-    } else {
-      // add-2007-bl (ec.cl:85-120)
-      Fe<NW> Z1Z1 = fe_sqr<NW>(Z1, fc);
-      Fe<NW> Z2Z2 = fe_sqr<NW>(Z2, fc);
-      Fe<NW> U1 = fe_mul<NW>(X1, Z2Z2, fc);
-      Fe<NW> U2 = fe_mul<NW>(X2, Z1Z1, fc);
-      Fe<NW> S1 = fe_mul<NW>(Y1, fe_mul<NW>(Z2, Z2Z2, fc), fc);
-      Fe<NW> S2 = fe_mul<NW>(Y2, fe_mul<NW>(Z1, Z1Z1, fc), fc);
-      Fe<NW> H = fe_sub<NW>(U2, U1, fc);
-      Fe<NW> rr = fe_dbl<NW>(fe_sub<NW>(S2, S1, fc), fc);
-      if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) {
-        dbl<NW>(X1, Y1, Z1, X3, Y3, Z3, fc);
-      } else {
-        Fe<NW> I = fe_sqr<NW>(fe_dbl<NW>(H, fc), fc);
-        Fe<NW> J = fe_mul<NW>(H, I, fc);
-        Fe<NW> V = fe_mul<NW>(U1, I, fc);
-        X3 = fe_sub<NW>(fe_sub<NW>(fe_sqr<NW>(rr, fc), J, fc), fe_dbl<NW>(V, fc), fc);
-        Y3 = fe_sub<NW>(fe_mul<NW>(rr, fe_sub<NW>(V, X3, fc), fc),
-                        fe_dbl<NW>(fe_mul<NW>(S1, J, fc), fc), fc);
-        Z3 = fe_mul<NW>(
-            fe_sub<NW>(fe_sub<NW>(fe_sqr<NW>(fe_add<NW>(Z1, Z2, fc), fc), Z1Z1, fc), Z2Z2, fc),
-            H, fc);
-      }
-    }
-  } else {  // kAddMixed: (X2, Y2) affine, (0, 0) = identity
-    Fe<NW> X2 = load_fe<NW>(args.in[3] + i * args.in_stride[3]);
-    Fe<NW> Y2 = load_fe<NW>(args.in[4] + i * args.in_stride[4]);
-    const bool i2 = fe_is_zero<NW>(X2) && fe_is_zero<NW>(Y2);
-    if (fe_is_zero<NW>(Z1)) {
-      X3 = X2; Y3 = Y2;
-      Z3 = i2 ? fe_zero<NW>() : fe_const<NW>(fc.one);
-    } else if (i2) {
-      X3 = X1; Y3 = Y1; Z3 = Z1;
-    } else {
-      // madd-2007-bl (ec.cl:45-82)
-      Fe<NW> Z1Z1 = fe_sqr<NW>(Z1, fc);
-      Fe<NW> U2 = fe_mul<NW>(X2, Z1Z1, fc);
-      Fe<NW> S2 = fe_mul<NW>(Y2, fe_mul<NW>(Z1, Z1Z1, fc), fc);
-      Fe<NW> H = fe_sub<NW>(U2, X1, fc);
-      Fe<NW> rr = fe_dbl<NW>(fe_sub<NW>(S2, Y1, fc), fc);
-      if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) {
-        dbl<NW>(X1, Y1, Z1, X3, Y3, Z3, fc);
-      } else {
-        Fe<NW> HH = fe_sqr<NW>(H, fc);
-        Fe<NW> I = fe_dbl<NW>(fe_dbl<NW>(HH, fc), fc);
-        Fe<NW> J = fe_mul<NW>(H, I, fc);
-        Fe<NW> V = fe_mul<NW>(X1, I, fc);
-        X3 = fe_sub<NW>(fe_sub<NW>(fe_sqr<NW>(rr, fc), J, fc), fe_dbl<NW>(V, fc), fc);
-        Y3 = fe_sub<NW>(fe_mul<NW>(rr, fe_sub<NW>(V, X3, fc), fc),
-                        fe_dbl<NW>(fe_mul<NW>(Y1, J, fc), fc), fc);
-        Z3 = fe_sub<NW>(fe_sub<NW>(fe_sqr<NW>(fe_add<NW>(Z1, H, fc), fc), Z1Z1, fc), HH, fc);
-      }
-    }
+    done = add_core<NW>(P, MemPoint<NW>{args, 3, i}, out, fc);
+  } else {
+    done = add_mixed_core<NW>(P, MemPoint<NW>{args, 3, i}, out, fc);
   }
-  store_fe<NW>(args.out[0] + i * args.out_stride, X3);
-  store_fe<NW>(args.out[1] + i * args.out_stride, Y3);
-  store_fe<NW>(args.out[2] + i * args.out_stride, Z3);
+  if (!done) double_row<NW>(&args, i, &fc);
+}
+
+// One thread: res = 2^w * res + S_j for j = windows-1 .. 0, from the
+// identity.  S: (windows, L) coordinates with row strides; out: 3 rows.
+template <int NW>
+__global__ void horner_kernel(const __grid_constant__ PointArgs args, int windows, int w,
+                              const __grid_constant__ FieldConsts fc) {
+  using namespace tec;
+  RegPoint<NW> res{fe_zero<NW>(), fe_zero<NW>(), fe_zero<NW>()};
+  RegPoint<NW> t;
+  const RegOut<NW> to{t};
+#pragma unroll 1
+  for (int j = windows - 1; j >= 0; --j) {
+#pragma unroll 1
+    for (int k = 0; k < w; ++k) {
+      dbl<NW>(res.x, res.y, res.z, to, fc);
+      res = t;
+    }
+    if (!add_core<NW>(res, MemPoint<NW>{args, 0, j}, to, fc)) dbl<NW>(res.x, res.y, res.z, to, fc);
+    res = t;
+  }
+  const MemOut<NW> out{args, 0};
+  out.X(res.x); out.Y(res.y); out.Z(res.z);
 }
 
 template <int NW>
 int launch(int op, const PointArgs& a, const FieldConsts& fc, cudaStream_t s) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
   switch (op) {
-    case kAdd: point_kernel<NW, kAdd><<<blocks, threads, 0, s>>>(a, fc); break;
-    case kAddMixed: point_kernel<NW, kAddMixed><<<blocks, threads, 0, s>>>(a, fc); break;
-    case kDouble: point_kernel<NW, kDouble><<<blocks, threads, 0, s>>>(a, fc); break;
+    case kAdd: point_kernel<NW, kAdd><<<blocks, kThreads, 0, s>>>(a, fc); break;
+    case kAddMixed: point_kernel<NW, kAddMixed><<<blocks, kThreads, 0, s>>>(a, fc); break;
+    case kDouble: point_kernel<NW, kDouble><<<blocks, kThreads, 0, s>>>(a, fc); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// op: 0 add (6 inputs), 1 add_mixed (5), 2 double (3).  in/out: arrays of
-// device pointers to (n, 2*nw) int32 half-limb coordinates with the given
-// row strides (in int32 elements).  Returns the launch's CUDA error.
-extern "C" int tec_point(int op, int nw, const void* const* in, const long long* in_stride,
-                         void* const* out, long long out_stride, long long n,
-                         const uint32_t* fc, void* stream) {
-  if (n <= 0) return 0;
+PointArgs make_args(int n_in, const void* const* in, const long long* in_stride,
+                    void* const* out, long long out_stride, long long n) {
   PointArgs a;
-  const int n_in = op == kAdd ? 6 : (op == kAddMixed ? 5 : 3);
   for (int k = 0; k < 6; ++k) {
     a.in[k] = k < n_in ? (const int32_t*)in[k] : nullptr;
     a.in_stride[k] = k < n_in ? in_stride[k] : 0;
   }
+  a.keep = nullptr;
   for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)out[k];
   a.out_stride = out_stride;
   a.n = n;
+  return a;
+}
+
+}  // namespace
+
+// op: 0 add (6 inputs), 1 add_mixed (5; in[2] null: P affine), 2 double (3).
+// in/out: arrays of device pointers to (n, 2*nw) int32 half-limb
+// coordinates with the given row strides (in int32 elements); the outputs
+// must not overlap the inputs.  keep: null, or n bytes (add, add_mixed:
+// nonzero -> out = P).  Returns the launch's CUDA error.
+extern "C" int tec_point(int op, int nw, const void* const* in, const long long* in_stride,
+                         const void* keep, void* const* out, long long out_stride, long long n,
+                         const uint32_t* fc, void* stream) {
+  if (n <= 0) return 0;
+  PointArgs a = make_args(op == kDouble ? 3 : (op == kAddMixed ? 5 : 6), in, in_stride, out,
+                          out_stride, n);
+  a.keep = (const uint8_t*)keep;
   FieldConsts c = tec::field_consts_from_host(fc);
   cudaStream_t s = (cudaStream_t)stream;
   if (nw == 8) return launch<8>(op, a, c, s);
   if (nw == 12) return launch<12>(op, a, c, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The Horner window combine: in = the (windows, 2*nw) per-window sums
+// (X, Y, Z) with row strides; out = 3 device pointers of 2*nw int32 each.
+extern "C" int tec_point_horner(int nw, const void* const* in, const long long* in_stride,
+                                int windows, int w, void* const* out, const uint32_t* fc,
+                                void* stream) {
+  if (windows <= 0 || w < 0) return (int)cudaErrorInvalidValue;
+  PointArgs a = make_args(3, in, in_stride, out, 0, 1);
+  FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) {
+    horner_kernel<8><<<1, 1, 0, s>>>(a, windows, w, c);
+  } else if (nw == 12) {
+    horner_kernel<12><<<1, 1, 0, s>>>(a, windows, w, c);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

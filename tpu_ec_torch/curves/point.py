@@ -100,13 +100,17 @@ class PointOps:
         """dbl-2009-l; identity-safe (Z3 = 2YZ = 0)."""
         return point_op(self.spec.base, "double", list(P))
 
-    def add(self, P, Q):
-        """add-2007-bl with select-based completeness."""
-        return point_op(self.spec.base, "add", [*P, *Q])
+    def add(self, P, Q, *, keep=None, out=None):
+        """add-2007-bl with select-based completeness.  ``keep`` (bool, the
+        batch shape): P where set instead of the sum; ``out``: a (..., 3L)
+        destination for the fused result rows (see ``kernels.point.point_op``)."""
+        return point_op(self.spec.base, "add", [*P, *Q], keep=keep, out=out)
 
-    def add_mixed(self, P, A):
-        """madd-2007-bl: Jacobian + affine ((0, 0) = identity), the MSM hot op."""
-        return point_op(self.spec.base, "add_mixed", [*P, *A])
+    def add_mixed(self, P, A, *, keep=None, out=None):
+        """madd-2007-bl: Jacobian + affine ((0, 0) = identity), the MSM hot op.
+        P may be affine (x, y), lifted as :meth:`to_jacobian` does; ``keep``
+        and ``out`` as for :meth:`add`."""
+        return point_op(self.spec.base, "add_mixed", [*P, *A], keep=keep, out=out)
 
     def neg(self, P):
         return (P[0], self.F.neg(P[1]), P[2])

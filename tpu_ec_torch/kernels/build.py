@@ -122,8 +122,10 @@ def load() -> ctypes.CDLL:
         lib.tec_mont_mul.restype = i32
         lib.tec_inter.argtypes = [vp, i32, vp, i32, vp, i32, i64, vp, vp]
         lib.tec_inter.restype = i32
-        lib.tec_point.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp]
+        lib.tec_point.argtypes = [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp]
         lib.tec_point.restype = i32
+        lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i32, vp, vp, vp]
+        lib.tec_point_horner.restype = i32
         lib.tec_pease_stage.argtypes = [i32, vp, vp, vp, i64, i32, i32, vp, vp]
         lib.tec_pease_stage.restype = i32
         lib.tec_ntt_leaf.argtypes = [i32, vp, vp, vp, i32, i64, vp, vp]

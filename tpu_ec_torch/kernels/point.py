@@ -1,11 +1,12 @@
 """K3: batched Jacobian point ops (add, add_mixed, double), and their plain version.
 
 Replaces ``tpu_ec/ops/pallas/point.py::_point_call_list`` / ``_point_call``
-(entries ``jac_add``, ``jac_add_mixed``, ``jac_double``).  The kernel is
-``csrc/point.cu``.  The plain version below evaluates the same formulas with
-the same select tree as ``tpu_ec/ops/pallas/point.py`` (it computes the
-doubling branch only on the rows that select it), so both are bit-identical
-to ``tpu_ec``'s PointOps.
+(entries ``jac_add``, ``jac_add_mixed``, ``jac_double``), and runs the
+MSM's Horner window combine (``tpu_ec/ops/msm_pair.py::horner_combine``) in
+one launch.  The kernel is ``csrc/point.cu``.  The plain version below
+evaluates the same formulas with the same select tree as
+``tpu_ec/ops/pallas/point.py`` (it computes the doubling branch only on the
+rows that select it), so both are bit-identical to ``tpu_ec``'s PointOps.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .mont import mont_mul_plain
 LAUNCHES = Launches("point")
 
 OPS = {"add": 0, "add_mixed": 1, "double": 2}
-N_IN = {"add": 6, "add_mixed": 5, "double": 3}
+N_IN = {"add": (6,), "add_mixed": (5, 4), "double": (3,)}
 
 
 class _PlainField:
@@ -141,38 +142,130 @@ def _add_mixed_body(F, X1, Y1, Z1, X2, Y2):
 _BODIES = {"add": _add_body, "add_mixed": _add_mixed_body, "double": _double_body}
 
 
-def point_op_plain(spec: FieldSpec, op: str, coords) -> tuple:
+def _check(spec: FieldSpec, op: str, coords, keep, out) -> None:
+    """Raise unless the arguments fit the op (before any device work)."""
+    if len(coords) not in N_IN[op]:
+        raise ValueError(f"{op}: expected {' or '.join(map(str, N_IN[op]))} coordinates, got {len(coords)}")
+    batch = tuple(coords[0].shape[:-1])
+    if keep is not None:
+        if op == "double":
+            raise ValueError("double takes no keep mask")
+        if keep.dtype != torch.bool or tuple(keep.shape) != batch or keep.device != coords[0].device:
+            raise ValueError(f"keep: expected bool {batch} on {coords[0].device}, got "
+                             f"{keep.dtype} {tuple(keep.shape)} on {keep.device}")
+    if out is not None:
+        want = batch + (3 * spec.n_limbs,)
+        if tuple(out.shape) != want or out.dtype != coords[0].dtype or out.device != coords[0].device:
+            raise ValueError(f"out: expected {coords[0].dtype} {want} on {coords[0].device}, got "
+                             f"{out.dtype} {tuple(out.shape)} on {out.device}")
+
+
+def _split(out: torch.Tensor, L: int) -> tuple:
+    return tuple(out[..., k * L : (k + 1) * L] for k in range(3))
+
+
+def point_op_plain(spec: FieldSpec, op: str, coords, keep=None) -> tuple:
     """Plain PyTorch version on any device: ``coords`` are the op's inputs
-    as (..., L) tensors; returns (X3, Y3, Z3) in the inputs' dtype."""
+    as (..., L) tensors; returns (X3, Y3, Z3) in the inputs' dtype.  An
+    add_mixed with 4 coordinates takes P affine and lifts it (z = 1, or 0
+    for (0, 0)); ``keep`` (bool, the batch shape) selects P over the sum."""
     F = _PlainField(spec, coords[0].device)
-    res = _BODIES[op](F, *(c.to(torch.int64) for c in coords))
+    c = [t.to(torch.int64) for t in coords]
+    if op == "add_mixed" and len(c) == 4:
+        ident = F.is_zero(c[0]) & F.is_zero(c[1])
+        c.insert(2, F.select(ident, torch.zeros_like(c[0]), F.one.expand_as(c[0])))
+    res = _BODIES[op](F, *c)
+    if keep is not None:
+        res = tuple(F.select(keep, p, r) for p, r in zip(c[:3], res))
     return tuple(r.to(coords[0].dtype) for r in res)
 
 
-def point_op(spec: FieldSpec, op: str, coords) -> tuple:
+def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None) -> tuple:
     """One batched group op: ``op`` in add (P, Q Jacobian: 6 coordinates),
-    add_mixed (P Jacobian, A affine: 5) or double (P: 3).
+    add_mixed (P Jacobian and A affine: 5; or P affine, lifted: 4) or
+    double (P: 3).
+
+    ``keep`` (add, add_mixed): a bool tensor of the batch shape; where set,
+    the result is P (lifted) instead of the sum, i.e. ``where(keep, P, P +
+    Q)``.  ``out``: a (..., 3L) tensor that receives (X3, Y3, Z3) side by
+    side (the fused rows of the MSM); it must not overlap the inputs, and
+    the result is then its three column slices.
 
     CPU tensors take the plain version.  On CUDA the coordinates are int32
     (..., L) tensors of one shape whose last axis is contiguous (row strides
     are passed to the kernel, so column slices of a fused row matrix need no
     copy); the kernel computes the op on the current stream."""
-    if len(coords) != N_IN[op]:
-        raise ValueError(f"{op}: expected {N_IN[op]} coordinates, got {len(coords)}")
-    if coords[0].device.type == "cpu":
-        return point_op_plain(spec, op, coords)
+    _check(spec, op, coords, keep, out)
     L = spec.n_limbs
+    if coords[0].device.type == "cpu":
+        res = point_op_plain(spec, op, coords, keep)
+        if out is None:
+            return res
+        for k, r in enumerate(res):
+            out[..., k * L : (k + 1) * L] = r
+        return _split(out, L)
     shape = coords[0].shape
     flat = row_views(op, coords, L)
     n = flat[0].shape[0]
-    outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
-    ins = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in flat])
-    strides = (ctypes.c_longlong * 6)(*[f.stride(0) for f in flat])
-    out_ptrs = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
+    if out is None:
+        outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+        out_ptrs, out_stride = [o.data_ptr() for o in outs], L
+    else:
+        rows = out.view(n, 3 * L)  # raises where the rows are no view
+        if rows.stride(-1) != 1:
+            raise ValueError("out: the last axis must be contiguous")
+        out_ptrs = [rows.data_ptr() + 4 * k * L for k in range(3)]
+        out_stride = rows.stride(0)
+    if len(flat) == 4:  # add_mixed with P affine: no z
+        flat.insert(2, None)
+    keep_flat = None if keep is None else keep.reshape(-1).contiguous()
+    ins = (ctypes.c_void_p * 6)(*[None if f is None else f.data_ptr() for f in flat])
+    strides = (ctypes.c_longlong * 6)(*[0 if f is None else f.stride(0) for f in flat])
     lib = load()
     err = lib.tec_point(
-        OPS[op], L // 2, ins, strides, out_ptrs, L, n, field_consts(spec), stream()
+        OPS[op], L // 2, ins, strides, None if keep_flat is None else keep_flat.data_ptr(),
+        (ctypes.c_void_p * 3)(*out_ptrs), out_stride, n, field_consts(spec), stream(),
     )
     check(lib, err, f"point {op}")
     LAUNCHES.count += 1
+    if out is not None:
+        return _split(out, L)
     return tuple(o.reshape(shape) for o in outs)
+
+
+def horner_plain(spec: FieldSpec, partials, w: int) -> tuple:
+    """Plain version of the Horner window combine: from the identity,
+    res = 2^w * res + S_j for j = W-1 .. 0 (tpu_ec/ops/msm_pair.py::
+    horner_combine), one batched op at a time.  ``partials``: (W, L)
+    coordinates; returns (1, L) coordinates."""
+    W = partials[0].shape[0]
+    res = tuple(torch.zeros_like(c[:1]) for c in partials)
+    for j in range(W):
+        for _ in range(w):
+            res = point_op_plain(spec, "double", list(res))
+        res = point_op_plain(spec, "add", [*res, *(c[W - 1 - j : W - j] for c in partials)])
+    return res
+
+
+def horner(spec: FieldSpec, partials, w: int) -> tuple:
+    """The Horner window combine of the MSM in one kernel launch (one
+    thread, the same device functions as the point ops, so bit-identical to
+    :func:`horner_plain`).  ``partials``: the (W, L) per-window sums (X, Y,
+    Z), int32 with contiguous last axes on CUDA; returns (1, L) coordinates.
+    CPU tensors take the plain version."""
+    if w < 0:
+        raise ValueError(f"horner: window size must be >= 0, got {w}")
+    if partials[0].device.type == "cpu":
+        return horner_plain(spec, partials, w)
+    L = spec.n_limbs
+    flat = row_views("horner", partials, L)
+    outs = [torch.empty((1, L), dtype=torch.int32, device=partials[0].device) for _ in range(3)]
+    lib = load()
+    err = lib.tec_point_horner(
+        L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
+        (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), flat[0].shape[0], w,
+        (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), field_consts(spec), stream(),
+    )
+    check(lib, err, "point horner")
+    LAUNCHES.count += 1
+    return tuple(outs)

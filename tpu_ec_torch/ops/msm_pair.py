@@ -5,10 +5,10 @@ PyTorch counterpart of ``tpu_ec/ops/msm_pair.py``.  Per window:
   1. sort (|digit|, index) and gather the points into bucket order once, as
      a fused (n, 2L) row matrix, negating y where the digit is negative;
   2. pair rounds: view (s, C) as (s/2, 2, C) and pair (2i, 2i+1).  Equal
-     keys merge with one batched point add (kernel K3); a boundary pair
-     keeps its left entry and spills its right entry into a side buffer of
-     at most half + 2 rows (#boundary pairs <= #live runs), packed by a
-     monotone masked gather.  Every round halves the width;
+     keys merge with one batched point add (kernel K3, which writes the
+     round's fused rows itself); a boundary pair keeps its left entry and
+     spills its right entry into a side buffer of at most half + 2 rows
+     (#boundary pairs <= #live runs), packed by a monotone masked gather.  Every round halves the width;
   3. finish: all spills and the last survivor, stably re-sorted, folded by
      a strided segmented scan that keeps each run's last entry;
   4. the unique survivors scatter into a (half + 2)-slot bucket array, then
@@ -27,6 +27,7 @@ import math
 import torch
 
 from ..curves.point import PointOps
+from ..kernels.point import horner
 from .msm import SCALAR_BITS, make_digits
 from .msm_sorted import _triangular_sum
 
@@ -81,23 +82,21 @@ def _masked_monotone_pack(keys, data, mask, cap: int):
 def _pair_round(ops: PointOps, key, data, *, affine: bool, spill_cap: int):
     """One halving round: (W, s) keys + (W, s, C) fused rows -> (W, s/2)
     + spill.  Equal-key pairs merge (one batched add); boundary pairs keep
-    left and spill right.  The new rows are always Jacobian (3L columns)."""
+    left and spill right.  The new rows are always Jacobian (3L columns):
+    the add writes them, P where the keys differ."""
     L = ops.L
     W, s = key.shape
     kp = key.reshape(W, s // 2, 2)
     ke, ko = kp[..., 0], kp[..., 1]
     dp = data.reshape(W, s // 2, 2, data.shape[-1])
     A, B = dp[:, :, 0], dp[:, :, 1]
-    same = ke == ko
+    differ = ke != ko
+    out = data.new_empty((W, s // 2, 3 * L))
     if affine:
-        Aj = ops.to_jacobian(_unfuse(A, L, 2))
-        merged = ops.add_mixed(Aj, _unfuse(B, L, 2))
-        Afull = _fuse(Aj)
+        ops.add_mixed(_unfuse(A, L, 2), _unfuse(B, L, 2), keep=differ, out=out)
     else:
-        merged = ops.add(_unfuse(A, L, 3), _unfuse(B, L, 3))
-        Afull = A
-    out = torch.where(same.unsqueeze(-1), _fuse(merged), Afull)
-    sk, sd = _masked_monotone_pack(ko, B, (~same) & (ko != SENT), spill_cap)
+        ops.add(_unfuse(A, L, 3), _unfuse(B, L, 3), keep=differ, out=out)
+    sk, sd = _masked_monotone_pack(ko, B, differ & (ko != SENT), spill_cap)
     return ke, out, sk, sd
 
 
@@ -111,31 +110,25 @@ def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
         sh = 1 << r
         k_sh = torch.cat([torch.full_like(key[:, :sh], SENT), key[:, :-sh]], dim=1)
         d_sh = torch.cat([torch.zeros_like(data[:, :sh]), data[:, :-sh]], dim=1)
-        m = (key == k_sh) & (key != SENT)
-        added = _fuse(ops.add(_unfuse(data, L, 3), _unfuse(d_sh, L, 3)))
-        data = torch.where(m.unsqueeze(-1), added, data)
+        keep = (key != k_sh) | (key == SENT)
+        added = torch.empty_like(data)
+        ops.add(_unfuse(data, L, 3), _unfuse(d_sh, L, 3), keep=keep, out=added)
+        data = added
     nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], SENT)], dim=1)
     is_last = (key != nxt) & (key != SENT)
     return torch.where(is_last, key, SENT), data
 
 
-def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
-    """Bucket accumulation: returns (W, half + 2, 3L) fused Jacobian buckets
-    (slot 0 = digit-0 dummy, slot half + 1 = overflow; both excluded from
-    the reduction).  ``points`` are affine (x, y) of (n, L); ``scalars`` are
-    (n, Ls + 1) plain limbs, zero-padded by one limb."""
-    if ops.spec.ext != 1:
-        raise NotImplementedError("the pair engine is G1-only")
+def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
+    """Step 1: per window, the sorted |digit| keys (W, n) and the points in
+    bucket order as fused (W, n, 2L) affine rows, y negated where the digit
+    is negative; n is the point count rounded up to a power of two (the
+    padding rows are identities with digit 0)."""
     F = ops.F
     L = ops.L
-    w = window_size
     num_windows = -(-SCALAR_BITS // w)
-    half = 1 << (w - 1)
-    nbuckets = half + 2
     n0 = scalars.shape[0]
     n = 1 << max(1, (n0 - 1).bit_length())
-    dev = scalars.device
-
     digits = make_digits(scalars, w, num_windows, True)  # (n0, W) int32
     fused = _fuse(points)  # (n0, 2L)
     if n != n0:
@@ -149,6 +142,24 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
     table = torch.cat([fused, _fuse((fused[:, :L], F.neg(fused[:, L:])))], dim=0)
     idx = perm + n * torch.gather(digits_t < 0, 1, perm)
     data = table.index_select(0, idx.reshape(-1)).reshape(num_windows, n, 2 * L)
+    return key_s, data
+
+
+def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
+    """Bucket accumulation: returns (W, half + 2, 3L) fused Jacobian buckets
+    (slot 0 = digit-0 dummy, slot half + 1 = overflow; both excluded from
+    the reduction).  ``points`` are affine (x, y) of (n, L); ``scalars`` are
+    (n, Ls + 1) plain limbs, zero-padded by one limb."""
+    if ops.spec.ext != 1:
+        raise NotImplementedError("the pair engine is G1-only")
+    L = ops.L
+    w = window_size
+    num_windows = -(-SCALAR_BITS // w)
+    half = 1 << (w - 1)
+    nbuckets = half + 2
+    dev = scalars.device
+    key_s, data = _bucket_rows(ops, points, scalars, w)
+    n = key_s.shape[1]
 
     k, d = key_s, data
     spill_cap = half + 2  # spills per round <= #live runs <= half + 1
@@ -182,14 +193,8 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
 
 def horner_combine(ops: PointOps, partials, w: int):
     """Per-window sums (W, L) coordinates -> the final point, high to low:
-    res = 2^w * res + S_j (multiexp.rs:221-235)."""
-    W = partials[0].shape[0]
-    res = ops.identity_jacobian((1,))
-    for j in range(W):
-        for _ in range(w):
-            res = ops.double(res)
-        res = ops.add(res, tuple(c[W - 1 - j : W - j] for c in partials))
-    return res
+    res = 2^w * res + S_j (multiexp.rs:221-235), in one K3 launch."""
+    return horner(ops.spec.base, partials, w)
 
 
 def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
