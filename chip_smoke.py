@@ -17,8 +17,11 @@ Phases, each failing the run on any error:
    (Montgomery product), K2 (digit-NTT twiddle), K3 (point add / add_mixed
    / double on 2^16 rows with identity, P == Q and P == -Q rows, the
    keep / out= entry, and the Horner combine at the commit's 19 windows of
-   w = 14), K5 (Pease stage, at the stage shape of a 2^9 NTT batch), K4
-   (leaf NTT, at the leaf shapes of the 2^n fused plan), K7 (affine denom
+   w = 14), K5 (Pease stages at the shape of a 2^9 NTT batch: one stage,
+   then all nine with the bit reversal, beside nine one-stage launches
+   and a gather), K4 (leaf NTT at the leaf shapes of the
+   2^n fused plan, and with its level epilogue at the plan's level shapes,
+   beside the leaf + K1 + transpose it replaces), K7 (affine denom
    and apply) and K6 (co-Z apply), the last three on 2^16 pairs of valid
    G1 points with identity, P == Q and P == -Q rows (K6 and K7's denom
    half are held and timed again at the co-Z path's shape in phase 4c);
@@ -32,19 +35,22 @@ Phases, each failing the run on any error:
    and fused out= rows as the path calls it;
 4b. the fused NTT: ``FftKernel`` with config ``ntt_impl="fused"`` at 2^n on
    phase 4's coefficients (leaf 5 and leaf 8), equal to phase 4's
-   evaluations, and its inverse giving the coefficients back; then
-   ``radix_fft_many`` on (2^11, 2^9, 16), K5's path, forward and inverse,
-   against the native NTT on a sample of rows;
+   evaluations, and its inverse giving the coefficients back; the forward
+   transform must launch K4 once per level (the level epilogue on all but
+   the last) and K1 never; then ``radix_fft_many`` on (2^11, 2^9, 16), K5's
+   path, forward and inverse, one K5 launch each, against the native NTT on
+   a sample of rows;
 4c. the co-Z MSM: ``multiexp(..., method="coz")`` at 2^n on phase 4's bases
    and scalars, equal to phase 4's commitment; ms per MSM beside the pair
    engine's, peak memory; then K7 (denom) and K6 against their plain
    versions on the operands of the MSM's first round, (W, s, L) column
-   slices of its fused rows, with their times and bounds; then the device
-   time of each hand kernel over one commit and one co-Z MSM
-   (torch.profiler); a profile that fails or holds no device time fails
-   the run;
+   slices of its fused rows, with their times and bounds;
 4d. ``affine_add_batch`` (K7's apply half) on the phase-3 pairs, against
-   the Jacobian mixed add;
+   the Jacobian mixed add; then the device time of each hand kernel over
+   one commit, one co-Z MSM, one fused NTT, one ``radix_fft_many`` and
+   one ``affine_add_batch`` (torch.profiler); a profile that fails or
+   holds no device time fails the run, and so does any device op of the
+   fused NTT or ``radix_fft_many`` other than K4 and K5;
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -194,7 +200,8 @@ KERNEL_LABELS = (
     ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
     ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")), ("horner_kernel", "K3 horner"),
     ("double_row", "K3 double_row (device function of the adds)"),
-    ("ntt_leaf_kernel", "K4 ntt_leaf"), ("pease_stage_kernel", "K5 pease_stage"),
+    ("ntt_leaf_kernel", ("K4 ntt_leaf", "K4 ntt_leaf+level")), ("pease_rows_kernel", "K5 pease_rows"),
+    ("pease_stage_kernel", "K5 pease_stage (rows too long for one block)"),
     ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
 )
 
@@ -303,7 +310,9 @@ class Kernels:
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
+        "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
+        "pease_stages": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
         "coz_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:232"),
         "affine_denom": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:75"),
         "affine_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:107"),
@@ -373,7 +382,8 @@ def main() -> int:
     from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR
     from tpu_ec_torch.kernels import affine as kaff
     from tpu_ec_torch.kernels import build
-    from tpu_ec_torch.kernels.butterfly import pease_stage, pease_stage_plain
+    from tpu_ec_torch.kernels.butterfly import (bit_reverse_index, pease_stage, pease_stage_plain, pease_stages,
+                                                pease_stages_plain)
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
     from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
@@ -523,21 +533,44 @@ def main() -> int:
           f"{nwin * wp} doublings and {nwin} adds in series), ms / bound {h_ms / horner_bound:.1f} | {card}",
           flush=True)
 
-    # K5 at the stage shape of a 2^9 NTT batch (radix_fft_many, phase 4b)
+    # K5 at the shape of the 2^9 NTT batch of radix_fft_many (phase 4b): one
+    # stage, then every stage with the bit reversal in one launch
     nb = max(1, n >> 9)
     y = torch.as_tensor(random_field(rng, BLS12_381_FR, nb * 512)).to(dev, torch.int32).reshape(nb, 512, L_fr)
     tw9 = torch.as_tensor(get_domain(BLS12_381_FR, 9).twiddles.astype(np.int64)).to(dev, torch.int32)
+    row_bytes = (2 * nb * 512 + 256) * L_fr * 4
     for s in (0, 8):
         plain = lambda: chunked(lambda t: pease_stage_plain(BLS12_381_FR, t, tw9, s), y)
-        bound = dict(nbytes=(2 * nb * 512 + 256) * L_fr * 4, imads=nb * 256 * mont_imads(L_fr // 2))
+        bound = dict(nbytes=row_bytes, imads=nb * 256 * mont_imads(L_fr // 2))
         check("pease_stage", f"K5 pease_stage ({nb}, 512, 16) stage {s}",
               pease_stage(BLS12_381_FR, y, tw9, s), plain(),
               cuda_ms(lambda: pease_stage(BLS12_381_FR, y, tw9, s)), cuda_ms(plain, iters=1),
               **(bound if s == 0 else {}))
+    whole = lambda: pease_stages(BLS12_381_FR, y, tw9, 0, 9, bitrev=True)
+    plain = lambda: chunked(lambda t: pease_stages_plain(BLS12_381_FR, t, tw9, 0, 9, bitrev=True), y)
+    want = plain()
+    whole_ms = cuda_ms(whole)
+    check("pease_stages", f"K5 pease_stages ({nb}, 512, 16) stages 0..8, bit-reversed", whole(), want,
+          whole_ms, cuda_ms(plain, iters=1), nbytes=row_bytes, imads=9 * nb * 256 * mont_imads(L_fr // 2))
+    rev9 = bit_reverse_index(9, dev)
+
+    def staged():  # the staged form: nine one-stage launches, then the gather
+        t = y
+        for s in range(9):
+            t = pease_stage(BLS12_381_FR, t, tw9, s)
+        return t.index_select(1, rev9)
+
+    if not torch.equal(staged(), want):
+        raise SystemExit("K5: nine one-stage launches and the gather disagree with the plain transform")
+    b5 = report.rows["pease_stages"]["bound_ms"]
+    print(f"K5 whole transform: {whole_ms:.4f} ms, bound {b5:.4f} ms "
+          f"({report.rows['pease_stages']['bound_by']}), ms / bound {whole_ms / b5:.2f}; nine one-stage "
+          f"launches + gather {cuda_ms(staged):.4f} ms | {card}", flush=True)
 
     # K4 at the leaf shapes of the 2^n fused plan (forward tables)
     fdom = get_fused_domain(BLS12_381_FR, args.log_n, False)
-    ftw = fused_consts(fdom, dev)["leaf"]
+    fcon = fused_consts(fdom, dev)
+    ftw = fcon["leaf"]
     log_rest, first = args.log_n, True
     for lf in fdom.plan:
         m, B = 1 << lf, n >> lf
@@ -548,6 +581,36 @@ def main() -> int:
               cuda_ms(lambda: ntt_leaf(BLS12_381_FR, x, ftw[lf])), cuda_ms(plain, iters=1),
               **(bound if first else {}))
         first = False
+    # K4 with the level epilogue at the plan's level shapes, beside the
+    # three steps it replaces (leaf, K1 by the expanded table, transpose copy)
+    log_rest, B, first = args.log_n, 1, True
+    for lf in fdom.plan[:-1]:
+        n1_log = log_rest - lf
+        m, n1 = 1 << lf, 1 << n1_log
+        T = fcon["inter"][(log_rest, n1_log)]
+        x = torch.as_tensor(random_field(rng, BLS12_381_FR, n)).to(dev, torch.int32).reshape(m, n1 * B, L_fr)
+        kern = lambda: ntt_leaf(BLS12_381_FR, x, ftw[lf], level=(T, B))
+        got, want = kern(), ntt_leaf_plain(BLS12_381_FR, x, ftw[lf], level=(T, B))
+        T_rows = T[:, :, None, :].expand(m, n1, B, L_fr).reshape(m, n1 * B, L_fr).contiguous()
+
+        def three_steps():
+            t = mont_mul(BLS12_381_FR, ntt_leaf(BLS12_381_FR, x, ftw[lf]), T_rows)
+            return t.reshape(m, n1, B * L_fr).transpose(0, 1).contiguous().reshape(n1, m * B, L_fr)
+
+        if not torch.equal(three_steps(), want):
+            raise SystemExit(f"K4 level ({m}, {n1 * B}): leaf + K1 + transpose disagree with the plain version")
+        k_ms, three_ms = cuda_ms(kern), cuda_ms(three_steps)
+        _, p_ms = cuda_ms_once(lambda: ntt_leaf_plain(BLS12_381_FR, x, ftw[lf], level=(T, B)))
+        nbytes = (3 * n + lf * m // 2) * L_fr * 4
+        imads = (n1 * B * (m // 2) * lf + n) * mont_imads(L_fr // 2)
+        check("ntt_leaf_level", f"K4 ntt_leaf + level ({m}, {n1 * B}, 16), B = {B}", got, want, k_ms, p_ms,
+              **(dict(nbytes=nbytes, imads=imads) if first else {}))
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, imads / imad_rate * 1e3
+        print(f"K4 level ({m}, {n1 * B}): {k_ms:.4f} ms, bound {max(t_b, t_o):.4f} ms "
+              f"({'bytes' if t_b >= t_o else 'operations'}), ms / bound {k_ms / max(t_b, t_o):.2f}; "
+              f"leaf + K1 + transpose {three_ms:.4f} ms | {card}", flush=True)
+        del got, want, T_rows
+        log_rest, B, first = n1_log, B * m, False
 
     # K7 denom and apply, K6, on 2^16 pairs (PA, A): P == Q, P == -Q and
     # identity rows as above, row 0 P = identity too
@@ -686,7 +749,12 @@ def main() -> int:
               f"tables included) vs digit {stage['ntt']:.2f} ms | {card}", flush=True)
     cfg.ntt_leaf_log = default_leaf
     fk = FftKernel(BLS12_381_FR)
-    y = on_path(kernels, report, ("ntt_leaf",), "fused NTT", lambda: fk.radix_fft(coeffs))
+    y = on_path(kernels, report, ("ntt_leaf", "ntt_leaf_level"), "fused NTT", lambda: fk.radix_fft(coeffs))
+    got = kernels.launch_counters()
+    levels = len(get_fused_domain(BLS12_381_FR, args.log_n).plan) - 1
+    if (got["ntt_leaf_level"], got["ntt_leaf"], got["mont_mul"]) != (levels, 1, 0):
+        raise SystemExit(f"fused NTT: expected {levels} K4 launches with the level epilogue, one "
+                         f"without and no K1; got {got}")
     back = fk.radix_fft(y, inverse=True)
     if not (torch.equal(y, evals) and torch.equal(back, coeffs)):
         raise SystemExit("fused NTT: forward != digit evaluations or inverse != coefficients")
@@ -697,7 +765,13 @@ def main() -> int:
     batch = coeffs.reshape(-1, 512, L_fr)
     many = on_path(kernels, report, ("pease_stage",), "radix_fft_many",
                    lambda: pipe.fft.radix_fft_many(batch))
+    report.launches["pease_stages"] = report.launches["pease_stage"]
+    kernels.reset_launch_counters()
     back = pipe.fft.radix_fft_many(many, inverse=True)
+    got = kernels.launch_counters()
+    if (report.launches["pease_stage"], got["pease_stage"], got["mont_mul"]) != (1, 1, 1):
+        raise SystemExit(f"radix_fft_many: expected one K5 launch forward and one K5 + one K1 "
+                         f"inverse; got {report.launches['pease_stage']} and {got}")
     rows = sorted({0, 1, batch.shape[0] // 2, batch.shape[0] - 1})
     for r in rows:
         want = nfr.ntt(nfr.from_halflimbs(batch[r].cpu().numpy().astype(np.uint64)))
@@ -760,18 +834,6 @@ def main() -> int:
           f"{max(1, math.ceil(math.log2(sizes[-1]))) if sizes else 0} at {sizes[-1] if sizes else n}",
           flush=True)
 
-    # device time of each hand kernel over one commit and one co-Z MSM
-    for label, fn in (("commit", lambda: pipe.commit(coeffs, bases)),
-                      ("co-Z MSM", lambda: msm.multiexp(bases, scalars, method="coz"))):
-        got = device_split(fn)
-        if got is None:
-            raise SystemExit(f"profile {label}: the trace holds no device time")
-        split, busy, others = got
-        parts = ", ".join(f"{k} {v[0]:.2f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
-        print(f"profile {label}: device busy {busy:.2f} ms; hand kernels {parts} | {card}", flush=True)
-        print(f"profile {label}: largest other device ops: "
-              + "; ".join(f"{name[:60]} {ms:.2f} ms in {cnt}" for name, ms, cnt in others), flush=True)
-
     # 4d. affine_add_batch (K7 apply) on the phase-3 pairs vs the Jacobian add
     ops = pipe.ops
     s3 = on_path(kernels, report, ("affine_apply",), "affine_add_batch",
@@ -780,6 +842,31 @@ def main() -> int:
     if not all(torch.equal(g, w) for g, w in zip(s3, want3)):
         raise SystemExit("affine_add_batch disagrees with the Jacobian mixed add")
     print(f"affine_add_batch n={npts}: == Jacobian add_mixed + to_affine", flush=True)
+
+    # device time of each hand kernel over one call of each path
+    def fused_fft():
+        cfg.ntt_impl = "fused"
+        try:
+            return fk.radix_fft(coeffs)
+        finally:
+            cfg.ntt_impl = "digit"
+
+    for label, fn, alone in (("commit", lambda: pipe.commit(coeffs, bases), False),
+                             ("co-Z MSM", lambda: msm.multiexp(bases, scalars, method="coz"), False),
+                             ("fused NTT", fused_fft, True),
+                             ("radix_fft_many", lambda: pipe.fft.radix_fft_many(batch), True),
+                             ("affine_add_batch", lambda: affine_add_batch(BLS12_381_FQ, (x1, y1), (x2, y2)),
+                              False)):
+        got = device_split(fn)
+        if got is None:
+            raise SystemExit(f"profile {label}: the trace holds no device time")
+        split, busy, others = got
+        parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
+        print(f"profile {label}: device busy {busy:.4f} ms; hand kernels {parts} | {card}", flush=True)
+        print(f"profile {label}: largest other device ops: "
+              + "; ".join(f"{name[:60]} {ms:.4f} ms in {cnt}" for name, ms, cnt in others), flush=True)
+        if alone and others:
+            raise SystemExit(f"profile {label}: device ops besides the hand kernels: {others}")
 
     # 5. summary lines
     print(report.json_line(), flush=True)

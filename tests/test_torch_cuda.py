@@ -20,7 +20,7 @@ from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
 from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
 from tpu_ec_torch.kernels.point import point_op, point_op_plain
 from tpu_ec_torch.kernels import affine as kaff
-from tpu_ec_torch.kernels.butterfly import pease_stage, pease_stage_plain
+from tpu_ec_torch.kernels.butterfly import pease_stage, pease_stage_plain, pease_stages, pease_stages_plain
 from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
 
 pytestmark = pytest.mark.cuda
@@ -222,7 +222,30 @@ def test_pease_stage_kernel_matches_plain(cuda):
         assert torch.equal(pease_stage(spec, y, tw, s), pease_stage_plain(spec, y, tw, s)), s
 
 
-@pytest.mark.parametrize("log_m,batch", [(1, 300), (4, 4096), (8, 33), (10, 5)])
+@pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_381_FQ"])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 5, 6, 8, 9, 10, 12])
+def test_pease_stages_kernel_matches_plain(cuda, name, log_n):
+    """Stage ranges of the multi-stage K5 entry, with and without the bit
+    reversal, on batches whose last block is ragged (512 / n rows a block
+    below n = 512); 2^12 rows run one launch a stage."""
+    from tpu_ec_torch import kernels
+
+    spec = getattr(tfp, name)
+    n, L = 1 << log_n, spec.n_limbs
+    batch = max(3, 3 * 512 // n + 1)
+    y = torch.as_tensor(_field(spec, batch * n, 20 + log_n).reshape(batch, n, L)).to(cuda, torch.int32)
+    tw = torch.as_tensor(_field(spec, max(3, n // 2), 21)[: n // 2]).to(cuda, torch.int32)
+    ranges = {(0, log_n, True), (0, 1, False), (log_n - 1, log_n, True), (log_n // 2, log_n, False)}
+    for s0, s1, bitrev in sorted(ranges):
+        kernels.reset_launch_counters()
+        got = pease_stages(spec, y, tw, s0, s1, bitrev)
+        launches = kernels.launch_counters()["pease_stage"]
+        assert torch.equal(got, pease_stages_plain(spec, y, tw, s0, s1, bitrev)), (s0, s1, bitrev)
+        assert launches == (1 if log_n <= 10 else s1 - s0), (s0, s1, launches)
+
+
+@pytest.mark.parametrize("log_m,batch", [(1, 300), (2, 257), (3, 129), (4, 4096), (5, 33), (8, 33),
+                                         (9, 7), (10, 5)])
 def test_ntt_leaf_kernel_matches_plain(cuda, log_m, batch):
     spec = tfp.BLS12_381_FR
     m = 1 << log_m
@@ -230,6 +253,24 @@ def test_ntt_leaf_kernel_matches_plain(cuda, log_m, batch):
     k = log_m * (m // 2)
     tw = torch.as_tensor(_field(spec, max(k, 3), 10)[:k].reshape(log_m, m // 2, 16)).to(cuda, torch.int32)
     assert torch.equal(ntt_leaf(spec, x, tw), ntt_leaf_plain(spec, x, tw))
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_381_FQ"])
+@pytest.mark.parametrize("log_m,batch,B", [(1, 600, 2), (2, 300, 3), (3, 128, 1), (4, 192, 64),
+                                           (4, 300, 3), (5, 40, 5), (7, 12, 2), (8, 12, 3), (8, 64, 1),
+                                           (8, 32, 16), (9, 6, 1), (10, 3, 1), (10, 6, 2)])
+def test_ntt_leaf_level_kernel_matches_plain(cuda, name, log_m, batch, B):
+    """K4 with the level epilogue (times T, transposed to (n1, m * B)) on
+    column counts the block's C columns do not divide, B above and below C."""
+    spec = getattr(tfp, name)
+    m, L = 1 << log_m, spec.n_limbs
+    x = torch.as_tensor(_field(spec, m * batch, 30 + log_m).reshape(m, batch, L)).to(cuda, torch.int32)
+    k = log_m * (m // 2)
+    tw = torch.as_tensor(_field(spec, max(k, 3), 31)[:k].reshape(log_m, m // 2, L)).to(cuda, torch.int32)
+    T = torch.as_tensor(_field(spec, m * (batch // B), 32).reshape(m, batch // B, L)).to(cuda, torch.int32)
+    got = ntt_leaf(spec, x, tw, level=(T, B))
+    assert got.shape == (batch // B, m * B, L)
+    assert torch.equal(got, ntt_leaf_plain(spec, x, tw, level=(T, B)))
 
 
 def _affine_pairs(ops, n):
@@ -312,3 +353,23 @@ def test_fused_ntt_matches_digit(cuda):
         assert torch.equal(k.radix_fft(y, inverse=True), x)
     finally:
         cfg.ntt_impl = saved
+
+
+def test_radix_fft_many_is_one_pease_launch(cuda):
+    """The staged NTT of a (B, 2^9) batch: one K5 launch forward, one K5
+    and one K1 (n^-1) inverse, equal to the transforms one row at a time."""
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    spec = tfp.BLS12_381_FR
+    xs = torch.as_tensor(_field(spec, 7 * 512, 14).reshape(7, 512, 16)).to(cuda, torch.int32)
+    k = FftKernel(spec, cuda)
+    kernels.reset_launch_counters()
+    y = k.radix_fft_many(xs)
+    assert kernels.launch_counters()["pease_stage"] == 1
+    kernels.reset_launch_counters()
+    back = k.radix_fft_many(y, inverse=True)
+    counts = kernels.launch_counters()
+    assert (counts["pease_stage"], counts["mont_mul"]) == (1, 1)
+    assert torch.equal(back, xs)
+    assert all(torch.equal(y[i], k.radix_fft(xs[i])) for i in (0, 6))

@@ -126,9 +126,13 @@ def load() -> ctypes.CDLL:
         lib.tec_point.restype = i32
         lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i32, vp, vp, vp]
         lib.tec_point_horner.restype = i32
-        lib.tec_pease_stage.argtypes = [i32, vp, vp, vp, i64, i32, i32, vp, vp]
+        lib.tec_pease_rows_fit.argtypes = [i32, i32]
+        lib.tec_pease_rows_fit.restype = i32
+        lib.tec_pease_rows.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        lib.tec_pease_rows.restype = i32
+        lib.tec_pease_stage.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, vp, vp]
         lib.tec_pease_stage.restype = i32
-        lib.tec_ntt_leaf.argtypes = [i32, vp, vp, vp, i32, i64, vp, vp]
+        lib.tec_ntt_leaf.argtypes = [i32, vp, vp, vp, vp, i32, i64, i64, vp, vp]
         lib.tec_ntt_leaf.restype = i32
         lib.tec_affine.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp, i64, vp, vp]
         lib.tec_affine.restype = i32
@@ -170,6 +174,12 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> No
         raise DeviceError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise DeviceError(f"{name}: expected a contiguous tensor")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (the
+    kernels that move rows in 16-byte vectors need that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def row_views(what: str, coords, L: int) -> list[torch.Tensor]:

@@ -9,7 +9,7 @@ Routing is by size and config alone, on every device: log_n >= 10 runs the
 route that config ``ntt_impl`` names, "digit" (``ops/ntt_digit.py``: int8
 leaf GEMMs and kernel K2, the default) or "fused" (``ops/ntt_fused.py``:
 block-resident leaves, kernel K4); smaller transforms run the
-constant-geometry Pease loop below, one kernel-K5 launch per stage.
+constant-geometry Pease NTT below, one kernel-K5 launch for every stage.
 ``tpu_ec`` routes on the backend too; all routes are bit-exact equal, so
 the CPU tests walk the path the card walks.
 """
@@ -24,9 +24,9 @@ import torch
 from ..config import get_config
 from ..errors import Aborted
 from ..fields.fp import FieldOps
-from ..fields.limbs import resolve_device
+from ..fields.limbs import resolve_device, storage_dtype
 from ..fields.params import FieldSpec, int_to_limbs
-from ..kernels.butterfly import pease_stage
+from ..kernels.butterfly import pease_stages
 
 MAX_LOG2_FFT = 32
 DIGIT_MIN_LOG = 10  # log_n at and above which the ntt_impl route (digit or fused) runs
@@ -72,7 +72,6 @@ class Domain:
             omega = pow(omega, p - 2, p)
         self.omega = omega
         self.inverse = inverse
-        self._rev = bit_reverse_permutation(log_n)
 
     @functools.cached_property
     def twiddles(self) -> np.ndarray:
@@ -89,20 +88,17 @@ def get_domain(spec: FieldSpec, log_n: int, inverse: bool = False) -> Domain:
     return Domain(spec, log_n, inverse)
 
 
-def _ntt_impl(f: FieldOps, dom: Domain, x: torch.Tensor) -> torch.Tensor:
+def _ntt_impl(f: FieldOps, dom: Domain, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """Constant-geometry (Pease) decimation-in-frequency radix-2 NTT along
     axis -2 of x (..., n, L): every stage butterflies the halves into
-    u = a + b, v = (a - b) * w^e with e = (i >> s) << s, interleaved (one
-    kernel-K5 launch over the whole batch); natural order in, bit-reversal
-    gather out (``tpu_ec/ops/ntt.py::_ntt_impl``, the staged run of
-    ``tpu_ec/ops/pallas/ntt.py::PallasFftKernel``)."""
+    u = a + b, v = (a - b) * w^e with e = (i >> s) << s, interleaved, and
+    the output is bit-reversed back to natural order (``tpu_ec/ops/ntt.py::
+    _ntt_impl``, the staged run of ``tpu_ec/ops/pallas/ntt.py::
+    PallasFftKernel``): one kernel-K5 launch over every stage and row.
+    ``tw`` is the domain's (n/2, L) master table on x's device."""
     if dom.log_n == 0:
         return x
-    tw_table = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(x.dtype)
-    y = x.contiguous()
-    for s in range(dom.log_n):
-        y = pease_stage(f.spec, y, tw_table, s)
-    return y.index_select(-2, torch.as_tensor(dom._rev.astype(np.int64), device=x.device))
+    return pease_stages(f.spec, x.contiguous(), tw, 0, dom.log_n, bitrev=True)
 
 
 class FftKernel:
@@ -145,7 +141,11 @@ class FftKernel:
     def _small(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
         """log_n < DIGIT_MIN_LOG, any batch (..., n, L): the Pease loop."""
         dom = get_domain(self.spec, log_n, inverse)
-        y = _ntt_impl(self.f, dom, x)
+        key = ("pease", log_n, inverse, x.device)
+        if key not in self._consts:
+            self._consts[key] = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(
+                storage_dtype(x.device))
+        y = _ntt_impl(self.f, dom, x, self._consts[key])
         return self.mul_by_field(y, dom.n_inv) if inverse else y
 
     def radix_fft(self, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -158,7 +158,7 @@ class FftKernel:
 
     def radix_fft_many(self, xs, inverse: bool = False):
         """Batched transform: ``xs`` is (B, n, L) or a list of (n, L).  Below
-        2^DIGIT_MIN_LOG each Pease stage runs over the whole batch in one
+        2^DIGIT_MIN_LOG the Pease NTT runs over the whole batch in one
         launch; larger transforms run one at a time, as tpu_ec does."""
         if isinstance(xs, (list, tuple)):
             out = []

@@ -4,14 +4,16 @@ PyTorch counterpart of ``tpu_ec/ops/pallas/ntt_fused.py`` (the
 ``ntt_impl="fused"`` route of ``FftKernel``).  The transform of
 n = n1 * n2 points, viewed as (n2, n1) with j = j1 + n1 * j2, is
 
-  1. an n2-point NTT along axis 0 (root w^n1), a leaf: kernel K4;
-  2. times the twiddle T[k2, j1] = w^(k2 j1): kernel K1;
+  1. an n2-point NTT along axis 0 (root w^n1), a leaf;
+  2. times the twiddle T[k2, j1] = w^(k2 j1);
   3. a transpose to (n1, n2);
   4. an n1-point NTT along axis 0, recursively;
   5. a row-major flatten: X[k2 + n2 k1] = Z[k1, k2], natural order.
 
-Each leaf (at most 2^leaf points, config ``ntt_leaf_log``) runs all its
-radix-2 stages in one launch with the column in shared memory.  Tensors are
+Steps 1-3 are one launch of kernel K4 with its level epilogue; the
+innermost leaf has none.  Each leaf (at most 2^leaf points, config
+``ntt_leaf_log``) runs all its stages in one launch with its columns in
+shared memory.  Tensors are
 (m, B, L) rows: the transform runs along axis 0, batched over B.  The
 level twiddle tables are built once on the host and kept in the disk cache
 beside the digit NTT's (64 MB for the first level at 2^20).
@@ -118,13 +120,10 @@ def _rec(F: FieldOps, dom: FusedDomain, x: torch.Tensor, log_m: int, consts: dic
     _, B, L = x.shape
     log_n1 = log_m - dom.leaf
     n1, n2 = 1 << log_n1, 1 << dom.leaf
-    y = ntt_leaf(F.spec, x.reshape(n2, n1 * B, L), consts["leaf"][dom.leaf])
     T = consts["inter"][(log_m, log_n1)]  # (n2, n1, L)
-    if B > 1:
-        T = T[:, :, None, :].expand(n2, n1, B, L).reshape(n2, n1 * B, L)
-    y = F.mul(y, T.contiguous())
-    y = y.reshape(n2, n1, B * L).transpose(0, 1).contiguous()  # (n1, n2, B, L)
-    z = _rec(F, dom, y.reshape(n1, n2 * B, L), log_n1, consts)
+    # steps 1-3 in one launch: (n1, n2 * B, L), row j1 = (k2, b) twiddled
+    y = ntt_leaf(F.spec, x.reshape(n2, n1 * B, L), consts["leaf"][dom.leaf], level=(T, B))
+    z = _rec(F, dom, y, log_n1, consts)
     return z.reshape(n1 * n2, B, L)
 
 
