@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpu_ec_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20
-    python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check
+    python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20 (AMT batch: 2^10 x 2^10 and 2^10 x 2^12)
+    python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check (AMT chunks of 2^7)
 
 Phases, each failing the run on any error:
 
@@ -51,6 +51,16 @@ Phases, each failing the run on any error:
    one ``affine_add_batch`` (torch.profiler); a profile that fails or
    holds no device time fails the run, and so does any device op of the
    fused NTT or ``radix_fft_many`` other than K4 and K5;
+4e. the AMT batch, ``multiple_multiexp`` on BLS12-381 G1: shape A, 2^10-point
+   chunks x 2^(n-10) (phase 4's points, fresh Fr scalars), every chunk
+   against the native C++ Pippenger, ms per batch, points/s, the slab,
+   peak memory, and the K3 launches held against the count the rounds
+   predict; shape B, four times the chunks (the points tiled four times),
+   64 sampled chunks against native; the scan engine's batch (2^6 chunks)
+   and one 2^16 scan MSM against the pair engine's; K3's batched Horner
+   against its plain version on shape A's own window sums, with its bound
+   and the serial bound of one chain; a torch.profiler split of one
+   shape-A batch;
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -309,6 +319,7 @@ class Kernels:
         "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner_batch": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
@@ -348,9 +359,10 @@ class Kernels:
         return json.dumps({"kernels": out})
 
 
-def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn):
+def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn, rows: dict | None = None):
     """Run one path with the launch counters set to 0 just before it and
-    read just after; the kernels it owns must each have launched."""
+    read just after; the kernels it owns must each have launched.  Their
+    counts go to the report rows of the same name, or to ``rows[name]``."""
     kernels_mod.reset_launch_counters()
     out = fn()
     launches = kernels_mod.launch_counters()
@@ -359,7 +371,7 @@ def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn):
     if missing:
         raise SystemExit(f"{label} launched no {missing}")
     for k in owned:
-        report.launches[k] = launches[k]
+        report.launches[(rows or {}).get(k, k)] = launches[k]
     return out
 
 
@@ -390,9 +402,11 @@ def main() -> int:
     from tpu_ec_torch.kernels.point import horner, horner_plain, point_op, point_op_plain
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
-    from tpu_ec_torch.ops.msm import SCALAR_BITS
+    from tpu_ec_torch.ops.msm import SCALAR_BITS, batch_slab
     from tpu_ec_torch.ops.msm_coz import _bucket_rows, _pair_up, default_window_size_coz
-    from tpu_ec_torch.ops.msm_pair import _bucket_rows, _pair_round, _unfuse, default_window_size_pair
+    from tpu_ec_torch.ops.msm_pair import (_bucket_rows, _pair_round, _unfuse, default_window_size_pair,
+                                           msm_pair_buckets)
+    from tpu_ec_torch.ops.msm_scan import bucket_tail
     from tpu_ec_torch.ops.msm_sorted import _plan_sizes
     from tpu_ec_torch.ops.ntt import FftKernel, get_domain
     from tpu_ec_torch.ops.ntt_digit import digit_consts, get_digit_domain, leaf_log
@@ -867,6 +881,137 @@ def main() -> int:
               + "; ".join(f"{name[:60]} {ms:.4f} ms in {cnt}" for name, ms, cnt in others), flush=True)
         if alone and others:
             raise SystemExit(f"profile {label}: device ops besides the hand kernels: {others}")
+
+    # 4e. the AMT batch: multiple_multiexp on 2^c-point chunks
+    t_amt = time.perf_counter()
+    log_chunk = min(10, args.log_n // 2)
+    chunk = 1 << log_chunk
+    c_a, c_b = n >> log_chunk, 4 * (n >> log_chunk)
+    wb = default_window_size_pair(chunk)
+    nwin_b, half_b = -(-SCALAR_BITS // wb), 1 << (wb - 1)
+    scal_a_np = random_field(rng, BLS12_381_FR, n)  # plain Fr integers, rows 0-2: 0, 1, r - 1
+    scal_a = torch.as_tensor(scal_a_np).to(dev, torch.int32)
+
+    def k3_per_slab(slab: int) -> int:
+        """K3 launches of one slab: the pair rounds over its rows, the
+        finish, the prefix scan and the tree of the tails, one Horner."""
+        rounds = (slab * chunk).bit_length() - 1
+        return rounds + max(1, math.ceil(math.log2(rounds + 2))) + 2 * (wb - 1) + 1
+
+    def native_chunks(aff, scal_np, chunks, got, label):
+        """Chunks of a batch against the native C++ Pippenger, compared as
+        affine points (native to_affine on both sides)."""
+        got_u64 = np.concatenate([nc.fq.from_halflimbs(c[chunks].cpu().numpy().astype(np.uint64)) for c in got],
+                                 axis=1)
+        s_u64 = nfr.from_halflimbs(scal_np.astype(np.uint64))
+        want = np.stack([nc.msm(aff[(c * chunk) % n : (c * chunk) % n + chunk], s_u64[c * chunk : (c + 1) * chunk])
+                         for c in chunks])
+        bad = int((nc.to_affine(got_u64) != nc.to_affine(want)).any(axis=1).sum())
+        if bad:
+            raise SystemExit(f"{label}: {bad} of {len(chunks)} chunks disagree with the native Pippenger MSM")
+
+    def amt_ms(fn):
+        """(ms per batch, mean of 3, and the three runs): host clock around
+        synchronised calls."""
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return sum(runs) / 3, runs
+
+    slab_a = batch_slab(BLS12_381_G1, "pair", chunk, wb, dev)
+    slab_a = min(slab_a, c_a)
+    run_a = lambda: msm.multiple_multiexp(bases, scal_a, c_a)
+    slabs_a = -(-c_a // slab_a)
+    out_a = on_path(kernels, report, ("point_horner",), f"AMT batch A (2^{log_chunk} x {c_a})", run_a,
+                    rows={"point_horner": "point_horner_batch"})
+    # the path's K3 launches of every entry (the Horner's among them), from
+    # the counters as the run left them
+    k3_a, k3_want = kernels.launch_counters()["point"], slabs_a * k3_per_slab(slab_a)
+    if k3_a != k3_want or report.launches["point_horner_batch"] != slabs_a:
+        raise SystemExit(f"AMT batch A: {k3_a} K3 launches, {report.launches['point_horner_batch']} of them the "
+                         f"Horner's; the rounds predict {k3_want}, one Horner a slab ({slabs_a})")
+    t0 = time.perf_counter()
+    native_chunks(bases_aff, scal_a_np, list(range(c_a)), out_a, "AMT batch A")
+    t_native_a = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ms_a, runs_a = amt_ms(run_a)
+    peak_a = torch.cuda.max_memory_allocated()
+    print(f"AMT batch A 2^{log_chunk} x {c_a} (w = {wb}, {nwin_b} windows): all {c_a} chunks == native Pippenger "
+          f"({t_native_a:.1f} s of host referee); {ms_a:.2f} ms per batch mean of 3 "
+          f"({', '.join(f'{t:.2f}' for t in runs_a)}), {n / ms_a * 1e3:.0f} points/s; slab {slab_a} chunks, "
+          f"{slabs_a} slabs; peak {peak_a / 2**30:.2f} GiB; K3 launches of every entry {k3_a} (rounds predict "
+          f"{k3_want}), of the Horner entry {report.launches['point_horner_batch']} | {card}", flush=True)
+
+    # shape B: the reference's 2^10 x 2^12, phase 4's points tiled four times
+    bases_b = tuple(t.repeat(4, 1) for t in bases)
+    scal_b_np = random_field(rng, BLS12_381_FR, 4 * n)
+    scal_b = torch.as_tensor(scal_b_np).to(dev, torch.int32)
+    slab_b = min(batch_slab(BLS12_381_G1, "pair", chunk, wb, dev), c_b)
+    run_b = lambda: msm.multiple_multiexp(bases_b, scal_b, c_b)
+    out_b = run_b()
+    sample = [0, *sorted(rng.choice(np.arange(1, c_b - 1), size=min(62, c_b - 2), replace=False).tolist()), c_b - 1]
+    native_chunks(bases_aff, scal_b_np, sample, out_b, "AMT batch B")
+    torch.cuda.reset_peak_memory_stats()
+    ms_b, runs_b = amt_ms(run_b)
+    peak_b = torch.cuda.max_memory_allocated()
+    print(f"AMT batch B 2^{log_chunk} x {c_b} (bases tiled 4x): {len(sample)} sampled chunks (first and last "
+          f"included) == native Pippenger; {ms_b:.2f} ms per batch mean of 3 "
+          f"({', '.join(f'{t:.2f}' for t in runs_b)}), {4 * n / ms_b * 1e3:.0f} points/s; slab {slab_b} chunks, "
+          f"{-(-c_b // slab_b)} slabs; peak {peak_b / 2**30:.2f} GiB | {card}", flush=True)
+    del bases_b, scal_b, out_b
+
+    # the scan engine: a batch of 2^6 chunks and one 2^16 MSM, against the
+    # pair engine's results
+    ops = pipe.ops
+    c_s = min(64, c_a)
+    same = lambda p, q: all(torch.equal(x, y) for x, y in zip(ops.to_affine(p), ops.to_affine(q)))
+    scan_b = msm.multiple_multiexp(tuple(t[: c_s * chunk] for t in bases), scal_a[: c_s * chunk], c_s, method="scan")
+    if not same(scan_b, tuple(c[:c_s] for c in out_a)):
+        raise SystemExit("scan batch disagrees with the pair batch")
+    n_s = min(n, 1 << 16)
+    scan_1 = msm.multiexp(tuple(t[:n_s] for t in bases), scal_a[:n_s], method="scan")
+    if not same(scan_1, msm.multiexp(tuple(t[:n_s] for t in bases), scal_a[:n_s], method="pair")):
+        raise SystemExit("scan MSM disagrees with the pair MSM")
+    print(f"scan engine: batch 2^{log_chunk} x {c_s} == pair batch; MSM 2^{n_s.bit_length() - 1} == pair MSM",
+          flush=True)
+
+    # K3's batched Horner at the path's (W, C) shape, on the sums of shape
+    # A's first slab, against its plain version
+    part = bucket_tail(ops, msm_pair_buckets(
+        ops, tuple(t[: slab_a * chunk].reshape(slab_a, chunk, L_fq) for t in bases),
+        torch.cat([scal_a[: slab_a * chunk], scal_a.new_zeros((slab_a * chunk, 1))], dim=1).reshape(slab_a, chunk, -1),
+        window_size=wb), half_b)
+    S = _unfuse(part, L_fq, 3)
+    want, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, wb))
+    hb_ms = cuda_ms(lambda: horner(BLS12_381_FQ, S, wb))
+    check("point_horner_batch", f"K3 horner batched ({nwin_b}, {slab_a}, {L_fq}) w={wb}",
+          horner(BLS12_381_FQ, S, wb), want, hb_ms, p_ms,
+          nbytes=(nwin_b + 1) * slab_a * 3 * L_fq * 4,
+          imads=slab_a * nwin_b * (wb * 7 + 16) * mont_imads(L_fq // 2))
+    per_op = h_ms / (nwin * (wp + 1))  # phase 3's one-thread Horner, per point op
+    serial = nwin_b * (wb + 1) * per_op
+    hb_bound = report.rows["point_horner_batch"]["bound_ms"]
+    print(f"K3 horner batched: {hb_ms:.4f} ms, bound {hb_bound:.4f} ms (operations, {slab_a} chains side by "
+          f"side), ms / bound {hb_ms / hb_bound:.1f}; serial bound {serial:.4f} ms (one chain of "
+          f"{nwin_b * (wb + 1)} point ops x {per_op * 1e3:.2f} us, phase 3's one-thread Horner), ms / serial "
+          f"{hb_ms / serial:.2f} | {card}", flush=True)
+    del part, S, want
+
+    got = device_split(run_a)
+    if got is None:
+        raise SystemExit("profile AMT batch A: the trace holds no device time")
+    split, busy, others = got
+    k3_ms = sum(v[0] for k, v in split.items() if k.startswith("K3"))
+    parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
+    print(f"profile AMT batch A: device busy {busy:.4f} ms, K3 {k3_ms:.4f} ms; hand kernels {parts} | {card}",
+          flush=True)
+    print("profile AMT batch A: largest other device ops: "
+          + "; ".join(f"{name[:60]} {ms:.4f} ms in {cnt}" for name, ms, cnt in others), flush=True)
+    print(f"phase 4e: {time.perf_counter() - t_amt:.1f} s", flush=True)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

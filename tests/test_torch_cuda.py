@@ -373,3 +373,69 @@ def test_radix_fft_many_is_one_pease_launch(cuda):
     assert (counts["pease_stage"], counts["mont_mul"]) == (1, 1)
     assert torch.equal(back, xs)
     assert all(torch.equal(y[i], k.radix_fft(xs[i])) for i in (0, 6))
+
+
+@pytest.mark.parametrize("C", [1024, 1])
+def test_horner_batch_kernel_matches_plain(cuda, C):
+    """K3's batched Horner (one thread a chunk) at the AMT path's (37, 1024)
+    shape and at C = 1, on column slices of fused (W, C, 3L) rows as the
+    path passes them, with identity sums, against its plain version."""
+    from tpu_ec_torch.kernels.point import horner, horner_plain
+
+    ops = PointOps(BLS12_381_G1, cuda)
+    _, P = _points(ops, 64)
+    W, L = 37, ops.L
+    idx = (torch.arange(W, device=cuda)[:, None] * 7 + torch.arange(C, device=cuda)[None, :] * 3) % 64
+    fused = torch.cat([c[idx] for c in P], dim=-1)  # (W, C, 3L)
+    fused[3, 0] = 0
+    fused[5, -1] = 0
+    S = [fused[..., k * L : (k + 1) * L] for k in range(3)]
+    got = horner(BLS12_381_G1.base, S, 7)
+    assert got[0].shape == (C, L)
+    assert all(torch.equal(g, w) for g, w in zip(got, horner_plain(BLS12_381_G1.base, S, 7)))
+
+
+def _batch_inputs(cuda, C, n):
+    ops = PointOps(BLS12_381_G1, cuda)
+    bases, _ = _points(ops, C * n)
+    scal = torch.as_tensor(_field(BLS12_381_G1.scalar, C * n, 15)).to(cuda, torch.int32)
+    return bases, scal
+
+
+def test_multiple_multiexp_matches_cpu(cuda, monkeypatch):
+    """multiple_multiexp on the card, flat engine in slabs of two of three
+    chunks and the scan engine, equals the CPU path bit for bit."""
+    from tpu_ec_torch.config import get_config
+    from tpu_ec_torch.ops.msm import MultiexpKernel, batch_slab
+
+    C, n = 3, 32
+    bases, scal = _batch_inputs(cuda, C, n)
+    budget = 1 << 16
+    while batch_slab(BLS12_381_G1, "pair", n, 5, cuda, budget) < 2:
+        budget *= 2  # at most doubles the slab, so it stops at 2
+    monkeypatch.setattr(get_config(), "msm_hbm_budget_bytes", budget)
+    card, cpu = MultiexpKernel(BLS12_381_G1, cuda), MultiexpKernel(BLS12_381_G1, "cpu")
+    cpu_in = (tuple(t.cpu().to(torch.int64) for t in bases), scal.cpu().to(torch.int64))
+    for method in ("pair", "scan"):
+        got = card.multiple_multiexp(bases, scal, C, window_size=5, method=method)
+        want = cpu.multiple_multiexp(*cpu_in, C, window_size=5, method=method)
+        assert all(torch.equal(g.cpu().to(torch.int64), w) for g, w in zip(got, want)), method
+
+
+def test_batch_k3_launches_one_slab(cuda):
+    """One slab of the flat engine launches K3 once a pair round, once a
+    finish round, once a round of the two tails and once for the Horner
+    combine, which its own counter counts too."""
+    import math
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.ops.msm import MultiexpKernel
+
+    C, n, w = 4, 64, 5
+    bases, scal = _batch_inputs(cuda, C, n)
+    kernels.reset_launch_counters()
+    MultiexpKernel(BLS12_381_G1, cuda).multiple_multiexp(bases, scal, C, window_size=w)
+    rounds = int(math.log2(C * n))
+    want = rounds + max(1, math.ceil(math.log2(rounds + 2))) + 2 * (w - 1) + 1
+    counts = kernels.launch_counters()
+    assert (counts["point"], counts["point_horner"]) == (want, 1)

@@ -21,7 +21,7 @@ from tpu_ec_torch.convert import points_to_numpy, points_to_torch
 from tpu_ec_torch.curves import BLS12_381_G1, PointOps
 from tpu_ec_torch.errors import DeviceError
 from tpu_ec_torch.fields import params as tfp
-from tpu_ec_torch.kernels.point import horner, point_op
+from tpu_ec_torch.kernels.point import horner, horner_plain, point_op
 
 
 @pytest.fixture(scope="module")
@@ -124,6 +124,24 @@ def test_horner_matches_tpu_ec(batch):
     S[2][1] = 0  # window 1 = identity
     want = horner_combine(jops, S, 3)
     assert _same(horner(BLS12_381_G1.base, points_to_torch(S, "cpu"), 3), want)
+
+
+def test_horner_batch_matches_tpu_ec(batch):
+    """The batched Horner combine's plain version (K3's batched entry on
+    the card) against tpu_ec/ops/msm_batch.py::horner_combine_batch at
+    W = 4, C = 3, w = 3, one (window, chunk) sum the identity: Jacobian
+    coordinates equal."""
+    from tpu_ec.ops.msm_batch import horner_combine_batch
+
+    jops, tops, (P, _, _, _, _) = batch
+    S = tuple(np.array(c[8:20]).reshape(4, 3, -1) for c in P)
+    S[2][1, 2] = 0  # window 1 of chunk 2 = identity
+    want = horner_combine_batch(jops, S, 3)
+    got = horner_plain(BLS12_381_G1.base, points_to_torch(S, "cpu"), 3)
+    assert _same(got, want)
+    # the single-MSM form is the C = 1 case
+    one = horner(BLS12_381_G1.base, points_to_torch(tuple(c[:, 0] for c in S), "cpu"), 3)
+    assert all(torch.equal(o, g[:1]) for o, g in zip(one, got))
 
 
 @pytest.mark.parametrize("name", ["BLS12_381_FQ", "BN254_FQ"])

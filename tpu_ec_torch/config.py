@@ -12,7 +12,7 @@ ntt_digit_leaf_log           TPU_EC_TORCH_NTT_DIGIT_LEAF_LOG   ops/ntt_digit
 ntt_impl                     TPU_EC_TORCH_NTT_IMPL             ops/ntt (log_n >= 10)
 ntt_leaf_log                 TPU_EC_TORCH_NTT_LEAF_LOG         ops/ntt_fused
 msm_window                   TPU_EC_TORCH_MSM_WINDOW           ops/msm (None = auto)
-msm_hbm_budget_bytes         TPU_EC_TORCH_HBM_BUDGET           ops/msm.calc_chunk_size
+msm_hbm_budget_bytes         TPU_EC_TORCH_HBM_BUDGET           ops/msm.device_budget_bytes
 log_level                    TPU_EC_TORCH_LOG                  get_logger
 ==========================  ================================  ======================
 

@@ -7,7 +7,9 @@
 // tpu_ec/ops/pallas/point.py:_add_body/_add_mixed_body (identity, P == Q,
 // P == -Q).  The Horner entry runs tpu_ec/ops/msm_pair.py:horner_combine
 // (w doublings and one add a window, top window first) in one launch with
-// the same device functions.  Every stored value is canonical, so the
+// the same device functions, and for a batch of MSMs
+// tpu_ec/ops/msm_batch.py:horner_combine_batch, one thread a chunk in the
+// same launch.  Every stored value is canonical, so the
 // Jacobian outputs are bit-identical to tpu_ec's PointOps, not merely the
 // same point.
 //
@@ -38,6 +40,8 @@ using tec::FieldConsts;
 constexpr int kAdd = 0, kAddMixed = 1, kDouble = 2;
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
+// Horner: one warp a block, so 1024 chunks take 32 SMs
+constexpr int kHornerThreads = 32;
 
 struct PointArgs {
   const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
@@ -230,12 +234,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (!done) double_row<NW>(&args, i, &fc);
 }
 
-// One thread: res = 2^w * res + S_j for j = windows-1 .. 0, from the
-// identity.  S: (windows, L) coordinates with row strides; out: 3 rows.
+// One thread a chunk c (args.n chunks): res = 2^w * res + S_jc for j =
+// windows-1 .. 0, from the identity.  S: (windows, chunks) coordinates
+// with row strides, row (j, c) at j * chunks + c; out: (chunks, L) rows.
+// A chain is serial, so a thread's time is its chain's latency; small
+// blocks spread the chunks over many SMs.
 template <int NW>
 __global__ void horner_kernel(const __grid_constant__ PointArgs args, int windows, int w,
                               const __grid_constant__ FieldConsts fc) {
   using namespace tec;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= args.n) return;
   RegPoint<NW> res{fe_zero<NW>(), fe_zero<NW>(), fe_zero<NW>()};
   RegPoint<NW> t;
   const RegOut<NW> to{t};
@@ -246,10 +255,10 @@ __global__ void horner_kernel(const __grid_constant__ PointArgs args, int window
       dbl<NW>(res.x, res.y, res.z, to, fc);
       res = t;
     }
-    if (!add_core<NW>(res, MemPoint<NW>{args, 0, j}, to, fc)) dbl<NW>(res.x, res.y, res.z, to, fc);
+    if (!add_core<NW>(res, MemPoint<NW>{args, 0, j * args.n + c}, to, fc)) dbl<NW>(res.x, res.y, res.z, to, fc);
     res = t;
   }
-  const MemOut<NW> out{args, 0};
+  const MemOut<NW> out{args, c};
   out.X(res.x); out.Y(res.y); out.Z(res.z);
 }
 
@@ -300,19 +309,24 @@ extern "C" int tec_point(int op, int nw, const void* const* in, const long long*
   return (int)cudaErrorInvalidValue;
 }
 
-// The Horner window combine: in = the (windows, 2*nw) per-window sums
-// (X, Y, Z) with row strides; out = 3 device pointers of 2*nw int32 each.
+// The Horner window combine of `chunks` MSMs side by side: in = the
+// (windows * chunks, 2*nw) per-window sums (X, Y, Z), row j * chunks + c
+// for window j of chunk c, with row strides; out = 3 device pointers of
+// (chunks, 2*nw) contiguous int32.  One thread a chunk, kHornerThreads a
+// block (one thread for one chunk).
 extern "C" int tec_point_horner(int nw, const void* const* in, const long long* in_stride,
-                                int windows, int w, void* const* out, const uint32_t* fc,
-                                void* stream) {
-  if (windows <= 0 || w < 0) return (int)cudaErrorInvalidValue;
-  PointArgs a = make_args(3, in, in_stride, out, 0, 1);
+                                int windows, long long chunks, int w, void* const* out,
+                                const uint32_t* fc, void* stream) {
+  if (windows <= 0 || chunks <= 0 || w < 0) return (int)cudaErrorInvalidValue;
+  PointArgs a = make_args(3, in, in_stride, out, 2 * nw, chunks);
   FieldConsts c = tec::field_consts_from_host(fc);
   cudaStream_t s = (cudaStream_t)stream;
+  const int threads = chunks < kHornerThreads ? (int)chunks : kHornerThreads;
+  const unsigned blocks = (unsigned)((chunks + threads - 1) / threads);
   if (nw == 8) {
-    horner_kernel<8><<<1, 1, 0, s>>>(a, windows, w, c);
+    horner_kernel<8><<<blocks, threads, 0, s>>>(a, windows, w, c);
   } else if (nw == 12) {
-    horner_kernel<12><<<1, 1, 0, s>>>(a, windows, w, c);
+    horner_kernel<12><<<blocks, threads, 0, s>>>(a, windows, w, c);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -50,7 +50,7 @@ class PointOps:
 
     def __init__(self, spec: CurveSpec, device="cuda"):
         if spec.ext != 1:
-            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port")
+            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port (ROADMAP.md queue 1, item 9)")
         self.spec = spec
         self.device = resolve_device(device)
         self.fq = FieldOps(spec.base, self.device)

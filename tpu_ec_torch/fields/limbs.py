@@ -97,7 +97,9 @@ def mul_cols(a: torch.Tensor, b: torch.Tensor, top: int) -> torch.Tensor:
     The anti-diagonal sums come from one outer product written into a zero
     buffer with row stride La + Lb: read back with row stride La + Lb - 1,
     row i lands shifted right by i, and a sum over rows gives the columns."""
-    batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    batch = a.shape[:-1]
+    if b.shape[:-1] != batch:  # torch.broadcast_shapes costs ~0.6 ms a call
+        batch = torch.broadcast_shapes(batch, b.shape[:-1])
     La, Lb = a.shape[-1], b.shape[-1]
     w = La + Lb
     a = a.expand(batch + (La,)).reshape(-1, La, 1)

@@ -124,7 +124,7 @@ def load() -> ctypes.CDLL:
         lib.tec_inter.restype = i32
         lib.tec_point.argtypes = [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp]
         lib.tec_point.restype = i32
-        lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i32, vp, vp, vp]
+        lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i64, i32, vp, vp, vp]
         lib.tec_point_horner.restype = i32
         lib.tec_pease_rows_fit.argtypes = [i32, i32]
         lib.tec_pease_rows_fit.restype = i32

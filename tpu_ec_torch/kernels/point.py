@@ -2,7 +2,8 @@
 
 Replaces ``tpu_ec/ops/pallas/point.py::_point_call_list`` / ``_point_call``
 (entries ``jac_add``, ``jac_add_mixed``, ``jac_double``), and runs the
-MSM's Horner window combine (``tpu_ec/ops/msm_pair.py::horner_combine``) in
+MSM's Horner window combine (``tpu_ec/ops/msm_pair.py::horner_combine``, and
+for a batch of MSMs ``tpu_ec/ops/msm_batch.py::horner_combine_batch``) in
 one launch.  The kernel is ``csrc/point.cu``.  The plain version below
 evaluates the same formulas with the same select tree as
 ``tpu_ec/ops/pallas/point.py`` (it computes the doubling branch only on the
@@ -20,7 +21,8 @@ from ..fields.params import FieldSpec
 from .build import Launches, check, field_consts, load, row_views, stream
 from .mont import mont_mul_plain
 
-LAUNCHES = Launches("point")
+LAUNCHES = Launches("point")  # every K3 launch, the Horner entry's too
+HORNER_LAUNCHES = Launches("point_horner")  # the Horner entry's launches
 
 OPS = {"add": 0, "add_mixed": 1, "double": 2}
 N_IN = {"add": (6,), "add_mixed": (5, 4), "double": (3,)}
@@ -233,39 +235,54 @@ def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None) -> tuple:
     return tuple(o.reshape(shape) for o in outs)
 
 
+def _chunk_axis(partials) -> list:
+    """Horner partials (W, L) or (W, C, L) -> (W, C, L) views (C = 1 for a
+    single MSM)."""
+    if partials[0].dim() not in (2, 3):
+        raise ValueError(f"horner: partials must be (W, L) or (W, C, L), got {tuple(partials[0].shape)}")
+    return [c if c.dim() == 3 else c.unsqueeze(1) for c in partials]
+
+
 def horner_plain(spec: FieldSpec, partials, w: int) -> tuple:
     """Plain version of the Horner window combine: from the identity,
     res = 2^w * res + S_j for j = W-1 .. 0 (tpu_ec/ops/msm_pair.py::
-    horner_combine), one batched op at a time.  ``partials``: (W, L)
-    coordinates; returns (1, L) coordinates."""
-    W = partials[0].shape[0]
-    res = tuple(torch.zeros_like(c[:1]) for c in partials)
+    horner_combine; for a batch of C MSMs, all chunks advancing together,
+    tpu_ec/ops/msm_batch.py::horner_combine_batch), one batched op at a
+    time.  ``partials``: (W, L) coordinates, or (W, C, L) for C chunks;
+    returns (1, L), or (C, L), coordinates."""
+    S = _chunk_axis(partials)
+    W = S[0].shape[0]
+    res = tuple(torch.zeros_like(c[0]) for c in S)
     for j in range(W):
         for _ in range(w):
             res = point_op_plain(spec, "double", list(res))
-        res = point_op_plain(spec, "add", [*res, *(c[W - 1 - j : W - j] for c in partials)])
+        res = point_op_plain(spec, "add", [*res, *(c[W - 1 - j] for c in S)])
     return res
 
 
 def horner(spec: FieldSpec, partials, w: int) -> tuple:
-    """The Horner window combine of the MSM in one kernel launch (one
-    thread, the same device functions as the point ops, so bit-identical to
-    :func:`horner_plain`).  ``partials``: the (W, L) per-window sums (X, Y,
-    Z), int32 with contiguous last axes on CUDA; returns (1, L) coordinates.
-    CPU tensors take the plain version."""
+    """The Horner window combine of the MSM, or of C MSMs side by side, in
+    one kernel launch (one thread a chunk, the same device functions as the
+    point ops, so bit-identical to :func:`horner_plain`).  ``partials``: the
+    (W, L) per-window sums (X, Y, Z), or (W, C, L) for C chunks, int32 with
+    contiguous last axes on CUDA (row strides go to the kernel); returns
+    (1, L), or (C, L), coordinates.  CPU tensors take the plain version."""
     if w < 0:
         raise ValueError(f"horner: window size must be >= 0, got {w}")
     if partials[0].device.type == "cpu":
         return horner_plain(spec, partials, w)
     L = spec.n_limbs
-    flat = row_views("horner", partials, L)
-    outs = [torch.empty((1, L), dtype=torch.int32, device=partials[0].device) for _ in range(3)]
+    S = _chunk_axis(partials)
+    W, C = S[0].shape[:2]
+    flat = row_views("horner", S, L)  # row j * C + c: window j of chunk c
+    outs = [torch.empty((C, L), dtype=torch.int32, device=partials[0].device) for _ in range(3)]
     lib = load()
     err = lib.tec_point_horner(
         L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
-        (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), flat[0].shape[0], w,
+        (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), W, C, w,
         (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), field_consts(spec), stream(),
     )
     check(lib, err, "point horner")
     LAUNCHES.count += 1
+    HORNER_LAUNCHES.count += 1
     return tuple(outs)

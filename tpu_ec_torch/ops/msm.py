@@ -3,9 +3,12 @@
 PyTorch counterpart of ``tpu_ec/ops/msm.py`` for signed digits: window
 digits (``make_digits``), chunk sizing by device memory
 (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
-engine (``ops/msm_pair.py``, the commit pipeline's) or the co-Z engine
-(``ops/msm_coz.py``), with oversized inputs split into chunks whose partial
-sums are added on the device.
+engine (``ops/msm_pair.py``, the commit pipeline's), the co-Z engine
+(``ops/msm_coz.py``) or the scan engine (``ops/msm_scan.py``), with
+oversized inputs split into chunks whose partial sums are added on the
+device, and ``MultiexpKernel.multiple_multiexp``, the batch of independent
+MSMs of the AMT workload (``tpu_ec/ops/msm_batch.py``), in slabs of chunks
+sized by device memory (``batch_slab``).
 """
 
 from __future__ import annotations
@@ -62,25 +65,67 @@ _WORKSET_ARRAYS = 10
 _WORKSET_WINDOWS = 20  # windows at the default window size for 2^18 - 2^24
 
 
-def calc_chunk_size(spec: CurveSpec, device, hbm_budget_bytes: int | None = None) -> int:
-    """Most points per MSM launch that fit the device-memory budget: the
-    budget is ``msm_hbm_budget_bytes`` or, when unset, the free memory the
-    card reports (4 GiB on the CPU); half of it goes to the engine's
-    working set of ~_WORKSET_ARRAYS * W coordinate arrays per point."""
+def device_budget_bytes(device, hbm_budget_bytes: int | None = None) -> int:
+    """The device-memory budget of the MSM engines: ``hbm_budget_bytes``,
+    else ``msm_hbm_budget_bytes``, else the free memory the card reports
+    plus what PyTorch's allocator holds unused (4 GiB on the CPU)."""
     if hbm_budget_bytes is None:
         hbm_budget_bytes = get_config().msm_hbm_budget_bytes
     if hbm_budget_bytes is None:
         dev = torch.device(device)
-        hbm_budget_bytes = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else 4 << 30
+        if dev.type != "cuda":
+            return 4 << 30
+        cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        hbm_budget_bytes = torch.cuda.mem_get_info(dev)[0] + cached
+    return hbm_budget_bytes
+
+
+def calc_chunk_size(spec: CurveSpec, device, hbm_budget_bytes: int | None = None) -> int:
+    """Most points per MSM launch that fit the device-memory budget
+    (``device_budget_bytes``): half of it goes to the engine's working set
+    of ~_WORKSET_ARRAYS * W coordinate arrays per point."""
     L = spec.base.n_limbs * spec.ext
     per_point = _WORKSET_ARRAYS * _WORKSET_WINDOWS * L * 4
-    n = (hbm_budget_bytes // 2) // per_point
+    n = (device_budget_bytes(device, hbm_budget_bytes) // 2) // per_point
     return max(1 << 12, 1 << (n.bit_length() - 1))  # round down to pow2
+
+
+def _spill_rows(chunk: int, half: int) -> int:
+    """Spill rows a chunk adds over all pair rounds: round r spills at most
+    min(rows / 2^(r+1), C * (half + 1) + 1), i.e. about min(chunk /
+    2^(r+1), half + 1) a chunk, and under one row a chunk in all rounds
+    past log2(chunk)."""
+    return sum(min(chunk >> (r + 1), half + 1) for r in range(max(1, (chunk - 1).bit_length()))) + 1
+
+
+# int32 coordinate arrays of L words that live per row and window at a batch
+# engine's peak: the pair engine's gathered (W, rows, 2L) rows, round 0's
+# (W, rows / 2, 3L) output and their temporaries; the scan engine's gathered
+# rows, its (W, n, 3L) Jacobian rows, their shifted copy and the round's
+# output.  The pair engine also holds each spill row three times (3L words:
+# the spill, the finish's concatenation and its sorted copy).
+_SLAB_ARRAYS = {"pair": 6, "scan": 12}
+_SPILL_ARRAYS = 9
+
+
+def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
+               hbm_budget_bytes: int | None = None) -> int:
+    """Most chunks of ``chunk`` points per slab of ``multiple_multiexp``
+    (one engine call each) that fit half the device-memory budget
+    (``device_budget_bytes``), with the real window count and the spill
+    buffers counted; a power of two."""
+    W = -(-SCALAR_BITS // w)
+    L = spec.base.n_limbs * spec.ext
+    words = _SLAB_ARRAYS[method] * chunk
+    if method == "pair":
+        words += _SPILL_ARRAYS * _spill_rows(chunk, 1 << (w - 1))
+    c = (device_budget_bytes(device, hbm_budget_bytes) // 2) // (W * L * 4 * words)
+    return 1 << max(0, c.bit_length() - 1)
 
 
 # engines of tpu_ec's multiexp that the port has not ported yet, and where
 # ROADMAP.md queues them
-_NOT_PORTED = {"sorted": "item 15", "scan": "item 8", "lattice": "item 11"}
+_NOT_PORTED = {"sorted": "item 15", "lattice": "item 11"}
 
 
 class MultiexpKernel:
@@ -105,10 +150,12 @@ class MultiexpKernel:
         ``bases`` are affine (x, y) of (n, L) ((0, 0) = identity);
         ``scalars`` are (n, Ls) plain-integer limbs (not Montgomery; see
         ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
-        pair-halving engine, which "auto" picks) or "coz" (the co-Z
-        scaled-affine engine)."""
+        pair-halving engine, which "auto" picks), "coz" (the co-Z
+        scaled-affine engine) or "scan" (the masked segmented-scan
+        engine)."""
         from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
+        from .msm_scan import default_window_size_scan, msm_scan
 
         self._check_abort()
         if method == "auto":
@@ -118,7 +165,8 @@ class MultiexpKernel:
                 f"MSM engine {method!r} is not ported yet (ROADMAP.md queue 1, {_NOT_PORTED[method]})"
             )
         engines = {"pair": (msm_pair, default_window_size_pair),
-                   "coz": (msm_coz, default_window_size_coz)}
+                   "coz": (msm_coz, default_window_size_coz),
+                   "scan": (msm_scan, default_window_size_scan)}
         if method not in engines:
             raise ValueError(f"unknown MSM method {method!r}")
         n = bases[0].shape[0]
@@ -147,6 +195,56 @@ class MultiexpKernel:
             part = self.multiexp(b, scalars[lo : lo + c], window_size=window_size, method=method)
             acc = part if acc is None else self.ops.add(acc, part)
         return acc
+
+    def multiple_multiexp(self, bases, scalars: torch.Tensor, num_chunks: int, *,
+                          window_size: int | None = None, method: str = "auto"):
+        """``num_chunks`` independent MSMs over equal slices of ``bases``
+        (ag-cuda-ec/src/multiexp.rs:21-81: chunk c takes bases and scalar
+        rows [c * n, (c + 1) * n)) -> a Jacobian batch of num_chunks points.
+
+        ``method``: "pair" (the flat one-sort engine: the pair engine with a
+        chunk axis, which "auto" picks) or "scan" (the scan engine with a
+        chunk axis) run the batch in slabs of chunks sized from the device
+        memory (``batch_slab``); the window is ``window_size`` or the
+        engine's model at the chunk size.  Any other method runs one
+        ``multiexp`` per chunk."""
+        n = bases[0].shape[0]
+        if num_chunks <= 0 or n % num_chunks:
+            raise ValueError(f"bases must split evenly into chunks: {n} points, {num_chunks} chunks")
+        chunk = n // num_chunks
+        if method == "auto":
+            method = "pair"
+        if method not in ("pair", "scan"):
+            outs = []
+            for c in range(num_chunks):
+                self._check_abort()
+                sl = slice(c * chunk, (c + 1) * chunk)
+                outs.append(self.multiexp(tuple(t[sl] for t in bases), scalars[sl], window_size=window_size,
+                                          method=method))
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        from .msm_pair import default_window_size_pair, msm_pair
+        from .msm_scan import default_window_size_scan, msm_scan
+
+        engine, default_w = {"pair": (msm_pair, default_window_size_pair),
+                             "scan": (msm_scan, default_window_size_scan)}[method]
+        w = window_size or default_w(chunk)
+        slab = min(batch_slab(self.spec, method, chunk, w, self.device), num_chunks)
+        get_logger("tpu_ec_torch.msm").info(
+            "batch MSM %d chunks of %d curve=%s engine=%s window=%d slab=%d",
+            num_chunks, chunk, self.spec.name, method, w, slab,
+        )
+        pts = tuple(t.reshape(num_chunks, chunk, -1) for t in bases)
+        s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1).reshape(num_chunks, chunk, -1)
+        parts = []
+        for lo in range(0, num_chunks, slab):
+            self._check_abort()
+            p, sc = tuple(t[lo : lo + slab] for t in pts), s[lo : lo + slab]
+            pad = slab - sc.shape[0]
+            if pad:  # every slab has one shape: chunk 0's bases, zero scalars
+                p = tuple(torch.cat([c, t[:1].expand(pad, *t.shape[1:])]) for c, t in zip(p, pts))
+                sc = torch.cat([sc, sc.new_zeros((pad,) + sc.shape[1:])])
+            parts.append(engine(self.ops, p, sc, window_size=w))
+        return tuple(torch.cat(c)[:num_chunks] for c in zip(*parts))
 
     def upload_bases(self, bases):
         """Pin an affine base table on the device, in the storage dtype, for

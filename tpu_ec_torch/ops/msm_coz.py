@@ -15,8 +15,9 @@ PyTorch counterpart of ``tpu_ec/ops/msm_coz.py``, run for
      ceil(log2(s_f)) rounds at size s_f finish any residual run, so no round
      reads a count back to the host;
   4. the unique survivors scatter into the 2^(w-1) + 2 bucket slots as
-     Jacobian points (x, y, zrun), empty buckets (0, 0, 0), and the
-     triangular sum and the Horner combine of the pair engine finish.
+     fused Jacobian rows (x, y, zrun), empty buckets (0, 0, 0), and the
+     triangular tail (``ops/msm_scan.py::bucket_tail``) and the Horner
+     combine of the pair engine finish.
 
 Where ``tpu_ec`` maps windows one at a time with ``lax.map``, every tensor
 here has an explicit leading window axis: the product tree runs along the
@@ -34,7 +35,8 @@ from ..curves.point import PointOps
 from .affine import coz_add_batch
 from .msm import SCALAR_BITS, make_digits
 from .msm_pair import SENT, _gather_rows, horner_combine
-from .msm_sorted import _plan_sizes, _triangular_sum
+from .msm_scan import _unfuse, bucket_tail
+from .msm_sorted import _plan_sizes
 
 
 def default_window_size_coz(n: int) -> int:
@@ -114,7 +116,7 @@ def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
 
 
 def msm_coz_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
-    """Bucket accumulation: (W, 2^(w-1) + 2, L) Jacobian bucket coordinates
+    """Bucket accumulation: (W, 2^(w-1) + 2, 3L) fused Jacobian buckets
     (slot 0 = digit 0, slot 2^(w-1) + 1 = overflow; both excluded from the
     reduction).  ``points`` are affine (x, y) of (n, L); ``scalars`` are
     (n, Ls + 1) plain limbs, zero-padded by one limb."""
@@ -139,19 +141,16 @@ def msm_coz_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size
 
     # every run has length 1: scatter into the buckets, sentinels into the
     # overflow slot (excluded from the sum, so which one lands there is moot)
-    slot = key.clamp(max=nbuckets - 1).long().unsqueeze(-1).expand(num_windows, s_f, L)
-    bx, by = (
-        torch.zeros((num_windows, nbuckets, L), dtype=data.dtype, device=data.device)
-        .scatter(1, slot, c)
-        for c in (data[..., :L], data[..., L:])
-    )
-    ident = F.is_zero(bx) & F.is_zero(by)
-    bz = torch.where(ident.unsqueeze(-1), 0, zrun.expand(num_windows, nbuckets, L))
-    return bx, by, bz
+    slot = key.clamp(max=nbuckets - 1).long().unsqueeze(-1).expand(num_windows, s_f, 2 * L)
+    buckets = data.new_zeros((num_windows, nbuckets, 3 * L))
+    buckets[..., : 2 * L].scatter_(1, slot, data)
+    ident = F.is_zero(buckets[..., :L]) & F.is_zero(buckets[..., L : 2 * L])
+    buckets[..., 2 * L :] = torch.where(ident.unsqueeze(-1), 0, zrun.expand(num_windows, nbuckets, L))
+    return buckets
 
 
 def msm_coz(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     """One full MSM -> Jacobian point with batch shape (1,)."""
     buckets = msm_coz_buckets(ops, points, scalars, window_size=window_size)
-    partials = _triangular_sum(ops, buckets, 1 << (window_size - 1))
-    return horner_combine(ops, partials, window_size)
+    tri = bucket_tail(ops, buckets, 1 << (window_size - 1))
+    return horner_combine(ops, _unfuse(tri, ops.L, 3), window_size)

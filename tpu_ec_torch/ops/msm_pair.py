@@ -1,18 +1,25 @@
-"""Pair-halving MSM engine (G1).
+"""Pair-halving MSM engine (G1), for one MSM or a flat batch of them.
 
-PyTorch counterpart of ``tpu_ec/ops/msm_pair.py``.  Per window:
+PyTorch counterpart of ``tpu_ec/ops/msm_pair.py`` and of the flat engine of
+``tpu_ec/ops/msm_batch.py``.  Per window:
 
-  1. sort (|digit|, index) and gather the points into bucket order once, as
-     a fused (n, 2L) row matrix, negating y where the digit is negative;
+  1. sort the bucket keys and gather the points into bucket order once, as
+     a fused (n, 2L) row matrix, negating y where the digit is negative.
+     The key is |digit|; for a batch of C chunks (the AMT workload: C
+     independent n-point MSMs, ``ag-build/cl/multiexp.cl:217-263`` runs
+     them in one launch) it is chunk * (half + 1) + |digit| over all C * n
+     rows, so equal digits of different chunks never merge;
   2. pair rounds: view (s, C) as (s/2, 2, C) and pair (2i, 2i+1).  Equal
      keys merge with one batched point add (kernel K3, which writes the
      round's fused rows itself); a boundary pair keeps its left entry and
-     spills its right entry into a side buffer of at most half + 2 rows
-     (#boundary pairs <= #live runs), packed by a monotone masked gather.  Every round halves the width;
+     spills its right entry into a side buffer of at most C * (half + 1) + 1
+     rows (#boundary pairs < #live runs), packed by a monotone masked
+     gather.  Every round halves the width;
   3. finish: all spills and the last survivor, stably re-sorted, folded by
      a strided segmented scan that keeps each run's last entry;
-  4. the unique survivors scatter into a (half + 2)-slot bucket array, then
-     the triangular sum and the Horner window combine.
+  4. the unique survivors scatter into a (C, half + 2)-slot bucket array,
+     then the triangular tails (``ops/msm_scan.py::bucket_tail``) and the
+     Horner window combine, one K3 thread a chunk.
 
 Where ``tpu_ec`` maps windows with ``vmap``/``lax.map``, every tensor here
 has an explicit leading window axis, so each round is one batched point
@@ -29,7 +36,7 @@ import torch
 from ..curves.point import PointOps
 from ..kernels.point import horner
 from .msm import SCALAR_BITS, make_digits
-from .msm_sorted import _triangular_sum
+from .msm_scan import _fuse, _unfuse, bucket_tail
 
 SENT = torch.iinfo(torch.int32).max
 
@@ -49,14 +56,6 @@ def default_window_size_pair(n: int) -> int:
         if cost < best_cost:
             best_w, best_cost = w, cost
     return best_w
-
-
-def _fuse(P):
-    return torch.cat(P, dim=-1)
-
-
-def _unfuse(D, L: int, k: int):
-    return tuple(D[..., i * L : (i + 1) * L] for i in range(k))
 
 
 def _gather_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -120,36 +119,46 @@ def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
 
 
 def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
-    """Step 1: per window, the sorted |digit| keys (W, n) and the points in
-    bucket order as fused (W, n, 2L) affine rows, y negated where the digit
-    is negative; n is the point count rounded up to a power of two (the
-    padding rows are identities with digit 0)."""
+    """Step 1: per window, the sorted bucket keys (W, rows) and the points
+    in bucket order as fused (W, rows, 2L) affine rows, y negated where the
+    digit is negative.  ``points`` (x, y) are (n, L), or (C, n, L) with
+    ``scalars`` (C, n, Ls + 1) for a batch, whose keys carry the chunk id;
+    rows = C * n rounded up to a power of two, the padding rows (identities,
+    digit 0) keyed to chunk C - 1's slot 0, which the tail never reads."""
     F = ops.F
     L = ops.L
     num_windows = -(-SCALAR_BITS // w)
-    n0 = scalars.shape[0]
-    n = 1 << max(1, (n0 - 1).bit_length())
-    digits = make_digits(scalars, w, num_windows, True)  # (n0, W) int32
-    fused = _fuse(points)  # (n0, 2L)
-    if n != n0:
-        digits = torch.cat([digits, digits.new_zeros((n - n0, num_windows))], dim=0)
-        fused = torch.cat([fused, fused.new_zeros((n - n0, 2 * L))], dim=0)
-    digits_t = digits.T.contiguous()  # (W, n)
-
-    key_s, perm = torch.sort(digits_t.abs(), dim=1, stable=True)
-    # one gather per window from [points; negated points]: row perm + n
+    half = 1 << (w - 1)
+    C = scalars.shape[0] if scalars.dim() == 3 else 1
+    n = scalars.shape[-2]
+    rows0 = C * n
+    rows = 1 << max(1, (rows0 - 1).bit_length())
+    if C * (half + 1) >= SENT:
+        raise ValueError(f"batch MSM: {C} chunks x {half + 1} buckets overflow the int32 keys")
+    digits = make_digits(scalars.reshape(rows0, -1), w, num_windows, True)  # (C n, W) int32
+    fused = _fuse(tuple(c.reshape(rows0, L) for c in points))  # (C n, 2L)
+    if rows != rows0:
+        digits = torch.cat([digits, digits.new_zeros((rows - rows0, num_windows))], dim=0)
+        fused = torch.cat([fused, fused.new_zeros((rows - rows0, 2 * L))], dim=0)
+    digits_t = digits.T.contiguous()  # (W, rows)
+    del digits
+    chunk_id = (torch.arange(rows, dtype=torch.int32, device=scalars.device) // n).clamp(max=C - 1)
+    key_s, perm = torch.sort(chunk_id * (half + 1) + digits_t.abs(), dim=1, stable=True)
+    # one gather per window from [points; negated points]: row perm + rows
     # holds -P, taken where the digit is negative
     table = torch.cat([fused, _fuse((fused[:, :L], F.neg(fused[:, L:])))], dim=0)
-    idx = perm + n * torch.gather(digits_t < 0, 1, perm)
-    data = table.index_select(0, idx.reshape(-1)).reshape(num_windows, n, 2 * L)
-    return key_s, data
+    idx = perm + rows * torch.gather(digits_t < 0, 1, perm)
+    del perm, digits_t
+    return key_s, table.index_select(0, idx.reshape(-1)).reshape(num_windows, rows, 2 * L)
 
 
 def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     """Bucket accumulation: returns (W, half + 2, 3L) fused Jacobian buckets
     (slot 0 = digit-0 dummy, slot half + 1 = overflow; both excluded from
-    the reduction).  ``points`` are affine (x, y) of (n, L); ``scalars`` are
-    (n, Ls + 1) plain limbs, zero-padded by one limb."""
+    the reduction), or (W, C, half + 2, 3L) for a batch.  ``points`` are
+    affine (x, y) of (n, L) ((0, 0) = identity), or (C, n, L); ``scalars``
+    are (n, Ls + 1), or (C, n, Ls + 1), plain limbs, zero-padded by one
+    limb."""
     if ops.spec.ext != 1:
         raise NotImplementedError("the pair engine is G1-only")
     L = ops.L
@@ -157,14 +166,12 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
     num_windows = -(-SCALAR_BITS // w)
     half = 1 << (w - 1)
     nbuckets = half + 2
-    dev = scalars.device
-    key_s, data = _bucket_rows(ops, points, scalars, w)
-    n = key_s.shape[1]
-
-    k, d = key_s, data
-    spill_cap = half + 2  # spills per round <= #live runs <= half + 1
+    C = scalars.shape[0] if scalars.dim() == 3 else 1
+    k, d = _bucket_rows(ops, points, scalars, w)
+    rounds = int(math.log2(k.shape[1]))
+    spill_cap = C * (half + 1) + 1  # spills per round < #live runs <= C * (half + 1)
     spills = []
-    for r in range(int(math.log2(n))):
+    for r in range(rounds):
         k, d, sk, sd = _pair_round(
             ops, k, d, affine=(r == 0), spill_cap=min(k.shape[1] // 2, spill_cap)
         )
@@ -179,27 +186,33 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
     # (#rounds + 1) times across spill generations
     fk = torch.cat([k] + [s[0] for s in spills], dim=1)
     fd = torch.cat([d] + [s[1] for s in spills], dim=1)
+    del k, d, spills
     fk, order = torch.sort(fk, dim=1, stable=True)
     fd = _gather_rows(fd, order)
-    rounds = int(math.log2(n))
     fk, fd = _seg_scan_finish(ops, fk, fd, max(1, math.ceil(math.log2(rounds + 2))))
 
-    # unique survivors -> pack -> scatter into buckets
-    pk, pd = _masked_monotone_pack(fk, fd, fk != SENT, nbuckets + 2)
-    slot = torch.where(pk == SENT, nbuckets - 1, pk.clamp(max=nbuckets - 1)).long()
-    buckets = torch.zeros((num_windows, nbuckets, 3 * L), dtype=pd.dtype, device=dev)
-    return buckets.scatter(1, slot.unsqueeze(-1).expand(pd.shape), pd)
+    # unique survivors -> pack -> scatter into the (C, half + 2) grid; an
+    # empty slot goes to chunk 0's overflow slot
+    pk, pd = _masked_monotone_pack(fk, fd, fk != SENT, spill_cap)
+    del fk, fd
+    live = pk != SENT
+    chunk = torch.where(live, pk // (half + 1), 0)
+    slot = torch.where(live, pk % (half + 1), nbuckets - 1)
+    buckets = pd.new_zeros((num_windows, C * nbuckets, 3 * L))
+    buckets.scatter_(1, (chunk * nbuckets + slot).long().unsqueeze(-1).expand(pd.shape), pd)
+    return buckets.reshape(num_windows, C, nbuckets, 3 * L) if scalars.dim() == 3 else buckets
 
 
 def horner_combine(ops: PointOps, partials, w: int):
-    """Per-window sums (W, L) coordinates -> the final point, high to low:
-    res = 2^w * res + S_j (multiexp.rs:221-235), in one K3 launch."""
+    """Per-window sums (W, L), or (W, C, L) for a batch, coordinates -> the
+    final point (1, L), or (C, L), high to low: res = 2^w * res + S_j
+    (multiexp.rs:221-235), in one K3 launch, one thread a chunk."""
     return horner(ops.spec.base, partials, w)
 
 
 def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
-    """One full MSM -> Jacobian point with batch shape (1,)."""
+    """One full MSM -> Jacobian point with batch shape (1,); for a batch
+    ((C, n, L) points, (C, n, Ls + 1) scalars), C MSMs -> batch (C,)."""
     w = window_size
-    buckets = msm_pair_buckets(ops, points, scalars, window_size=w)
-    partials = _triangular_sum(ops, _unfuse(buckets, ops.L, 3), 1 << (w - 1))
-    return horner_combine(ops, partials, w)
+    tri = bucket_tail(ops, msm_pair_buckets(ops, points, scalars, window_size=w), 1 << (w - 1))
+    return horner_combine(ops, _unfuse(tri, ops.L, 3), w)

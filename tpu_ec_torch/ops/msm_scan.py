@@ -1,0 +1,153 @@
+"""Masked segmented-scan MSM engine, and the masked scans of the bucket tail.
+
+PyTorch counterpart of ``tpu_ec/ops/msm_scan.py``.  Per window (all windows,
+and for a batch all chunks, in one tensor):
+
+  1. sort (|digit|, index), gather the points into bucket order once, then a
+     masked Hillis-Steele *segmented* inclusive scan along the sorted axis:
+     log2(n) rounds, each one K3 ``add`` of every row with the row h before
+     it, kept (``keep``) where the keys differ; each run's last row holds its
+     bucket sum and scatters into the (half + 2)-slot bucket array;
+  2. triangular tail sum_k k * b_k: inclusive prefix scan of the reversed
+     bucket row, summed by a halving tree (``masked_prefix_scan_add``,
+     ``masked_tree_sum``; every engine's tail is ``bucket_tail``);
+  3. the Horner window combine (kernel K3, one thread a chunk).
+
+It does ~log2(n) times the pair engine's adds; ``tpu_ec`` built it for its
+short XLA compile.  Fused blocks carry 3 * ext * L columns as in ``tpu_ec``;
+the port's ``PointOps`` is G1-only (ext = 1) and raises for G2.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..curves.point import PointOps
+from ..kernels.point import horner
+from .msm import SCALAR_BITS, make_digits
+
+
+def _fuse(P):
+    """Coordinates (..., L) each -> one fused (..., k L) row block."""
+    return torch.cat(P, dim=-1)
+
+
+def _unfuse(D, L: int, k: int):
+    """Fused (..., k L) block -> its k coordinates (views)."""
+    return tuple(D[..., i * L : (i + 1) * L] for i in range(k))
+
+
+def _fused_add(ops: PointOps, a, b, L: int, *, keep=None):
+    """K3 add on fused (..., 3L) blocks into a new fused block:
+    where(keep, a, a + b)."""
+    out = a.new_empty(a.shape)
+    ops.add(_unfuse(a, L, 3), _unfuse(b, L, 3), keep=keep, out=out)
+    return out
+
+
+def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
+    """Signed digits (..., W, n) and affine points (x, y) of (..., n, L) ->
+    fused (..., W, half + 2, 3L) Jacobian buckets (slot 0 = digit-0 junk,
+    slot half + 1 = scatter junk; both excluded downstream).  Leading axes
+    (a batch of chunks) pair each chunk's digits with its own points."""
+    L = ops.L
+    lead = digits_t.shape[:-2]
+    W, n = digits_t.shape[-2:]
+    B = math.prod(lead)
+    dig = digits_t.reshape(B, W, n)
+    x, y = (c.reshape(B * n, L) for c in points)
+
+    key, perm = torch.sort(dig.abs(), dim=-1, stable=True)  # (B, W, n)
+    # one gather from [points; negated points]: row perm + chunk offset,
+    # + B * n where the digit is negative
+    table = torch.cat([torch.cat([x, y], dim=1), torch.cat([x, ops.F.neg(y)], dim=1)], dim=0)
+    base = (torch.arange(B, device=dig.device) * n).view(B, 1, 1)
+    idx = perm + base + B * n * torch.gather(dig < 0, 2, perm)
+    rows = table.index_select(0, idx.reshape(-1)).reshape(B * W, n, 2 * L)
+    del table, idx, perm
+    data = torch.cat(ops.to_jacobian((rows[..., :L], rows[..., L:])), dim=-1)  # z = 0 for (0, 0)
+    del rows
+    key = key.reshape(B * W, n)
+
+    iota = torch.arange(n, device=key.device)
+    for r in range(max(0, (n - 1).bit_length())):
+        h = 1 << r
+        k_sh = torch.roll(key, h, dims=1)
+        same = (key == k_sh) & (iota >= h)
+        data = _fused_add(ops, data, torch.roll(data, h, dims=1), L, keep=~same)
+
+    nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], -1)], dim=1)
+    slot = torch.where(key != nxt, key.clamp(max=half + 1), half + 1).long()
+    out = data.new_zeros((B * W, half + 2, data.shape[-1]))
+    out.scatter_(1, slot.unsqueeze(-1).expand(data.shape), data)
+    return out.reshape(*lead, W, half + 2, data.shape[-1])
+
+
+def masked_prefix_scan_add(ops: PointOps, x: torch.Tensor, L: int, width: int):
+    """Inclusive prefix point-scan along axis -2 of a fused (..., width, 3L)
+    block (any leading axes): round r adds to each row the row 2^r before
+    it, rows below 2^r kept."""
+    iota = torch.arange(width, device=x.device)
+    for r in range(max(0, (width - 1).bit_length())):
+        h = 1 << r
+        keep = (iota < h).expand(x.shape[:-1])
+        x = _fused_add(ops, x, torch.roll(x, h, dims=-2), L, keep=keep)
+    return x
+
+
+def masked_tree_sum(ops: PointOps, x: torch.Tensor, L: int, width: int):
+    """Sum along axis -2 of a fused (..., width, 3L) block (width a power
+    of two): a halving tree, row i + width/2^(r+1) added into row i.
+    Returns (..., 3L): row 0 of tpu_ec's constant-shape masked tree, whose
+    rows past the half only carry copies."""
+    g = width
+    while g > 1:
+        x = _fused_add(ops, x[..., : g // 2, :], x[..., g // 2 : g, :], L)
+        g //= 2
+    return x[..., 0, :]
+
+
+def bucket_tail(ops: PointOps, buckets: torch.Tensor, half: int):
+    """sum_{k=1..half} k * bucket[k] of fused (..., half + 2, 3L) buckets
+    (slot 0 and slot half + 1 excluded): the prefix scan of the reversed
+    row summed by the tree (sum of reversed prefixes = sum_k k b_k).
+    Returns (..., 3L)."""
+    rev = buckets[..., 1 : half + 1, :].flip(-2)
+    return masked_tree_sum(ops, masked_prefix_scan_add(ops, rev, ops.L, half), ops.L, half)
+
+
+def msm_scan(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
+    """MSMs on the scan engine: affine (x, y) of (n, L) and (n, Ls + 1)
+    plain zero-padded scalar limbs -> one Jacobian point, batch (1,); with a
+    leading chunk axis, (C, n, L) and (C, n, Ls + 1) -> batch (C,)."""
+    L = ops.L
+    w = window_size
+    num_windows = -(-SCALAR_BITS // w)
+    half = 1 << (w - 1)
+    batched = scalars.dim() == 3
+    if not batched:
+        points, scalars = tuple(c.unsqueeze(0) for c in points), scalars.unsqueeze(0)
+    C, n = scalars.shape[:2]
+    digits = make_digits(scalars.reshape(C * n, -1), w, num_windows, True)  # (C n, W)
+    digits_t = digits.reshape(C, n, num_windows).transpose(1, 2)  # (C, W, n)
+    buckets = scan_buckets(ops, points, digits_t, half=half)  # (C, W, half + 2, 3L)
+    tri = bucket_tail(ops, buckets, half).transpose(0, 1)  # (W, C, 3L)
+    return horner(ops.spec.base, _unfuse(tri, L, 3), w)
+
+
+def default_window_size_scan(n: int) -> int:
+    """tpu_ec's cost model of the engine: ~log2(n) masked adds per point
+    per window plus a ~2 * half * log2(half) tail, W = ceil(256 / w)."""
+    if n <= 1:
+        return 2
+    best_w, best_cost = 2, float("inf")
+    logn = max(1, (n - 1).bit_length())
+    for w in range(2, 17):
+        W = -(-SCALAR_BITS // w)
+        B = 1 << (w - 1)
+        cost = W * (n * logn + 2.0 * B * max(1, B.bit_length()))
+        if cost < best_cost:
+            best_w, best_cost = w, cost
+    return best_w

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time the port's MSM paths, for comparing two checkouts on one GPU.
+
+    PYTHONPATH=<checkout> python3 tpu_ec_torch/utils/time_paths.py [--log-n 20]
+
+Imports ``tpu_ec_torch`` from the first checkout on ``PYTHONPATH``, so one
+copy of this script also times a checkout of another commit; run two
+checkouts in one machine, in the order A, B, B, A, and compare them there.
+Prints one JSON line: ms per call (host clock around synchronised calls,
+three calls after a warm-up) of the BLS12-381 G1 commit at 2^n
+(``CommitPipeline.commit``), the pair and co-Z MSMs on its scalars, and,
+where the checkout has ``multiple_multiexp``, the AMT batch of 2^10-point
+chunks over the same bases with fresh scalars; the card's name and power
+limit; and whether the co-Z MSM equals the pair MSM (it exits 1 if not).
+Inputs come from a seed: random Montgomery coefficients below r and 2^n
+points k*G with random 64-bit k (the native C++ scalar multiplication).
+``--device cpu`` runs the same steps on the CPU, at a small ``--log-n``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+SEED = 20240601
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log-n", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    import tpu_ec_torch
+    from tpu_ec_torch.curves.params import BLS12_381_G1
+    from tpu_ec_torch.fields.params import BLS12_381_FR
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.pipeline import CommitPipeline
+
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        print("time_paths: no CUDA device available", file=sys.stderr)
+        return 1
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n = 1 << args.log_n
+    rng = np.random.default_rng(SEED)
+
+    L = BLS12_381_FR.n_limbs
+    coeffs = rng.integers(0, 1 << 16, (n, L), dtype=np.int64)
+    coeffs[:, -1] = rng.integers(0, int(BLS12_381_FR.p_limbs[-1]), n)  # below r's top limb
+    nc = native_curve(BLS12_381_G1)
+    G = nc.affine_from_points([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    ks = np.zeros((n, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    aff = nc.to_affine(nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks))
+
+    pipe = CommitPipeline(BLS12_381_G1, device=dev)
+    w = nc.w
+    bases = pipe.msm.upload_bases(tuple(
+        torch.as_tensor(nc.fq.to_halflimbs(aff[:, i * w : (i + 1) * w]).astype("int64")) for i in range(2)))
+    coeffs = torch.as_tensor(coeffs).to(dev, pipe.ops.fq.dtype)
+    evals, commitment = pipe.commit(coeffs, bases)
+    scalars = pipe.fr.from_mont(evals)
+
+    def ms(fn):
+        fn()
+        out = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    res = {
+        "package": tpu_ec_torch.__file__.rsplit("/", 2)[0],
+        "log_n": args.log_n,
+        "commit_ms": ms(lambda: pipe.commit(coeffs, bases)),
+        "pair_ms": ms(lambda: pipe.msm.multiexp(bases, scalars, method="pair")),
+        "coz_ms": ms(lambda: pipe.msm.multiexp(bases, scalars, method="coz")),
+        "amt_ms": None,
+    }
+    same = lambda p, q: all(torch.equal(x, y) for x, y in zip(pipe.ops.to_affine(p), pipe.ops.to_affine(q)))
+    res["coz_equal"] = same(pipe.msm.multiexp(bases, scalars, method="coz"), commitment)
+    if hasattr(pipe.msm, "multiple_multiexp"):
+        chunk = 1 << min(10, args.log_n // 2)
+        amt_s = rng.integers(0, 1 << 16, (n, L), dtype=np.int64)
+        amt_s[:, -1] = rng.integers(0, int(BLS12_381_FR.p_limbs[-1]), n)
+        amt_s = torch.as_tensor(amt_s).to(dev, pipe.ops.fq.dtype)
+        res["amt_chunks"] = [chunk, n // chunk]
+        res["amt_ms"] = ms(lambda: pipe.msm.multiple_multiexp(bases, amt_s, n // chunk))
+    if cuda:
+        res["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    print(json.dumps(res), flush=True)
+    return 0 if res["coz_equal"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
