@@ -61,6 +61,21 @@ Phases, each failing the run on any error:
    against its plain version on shape A's own window sums, with its bound
    and the serial bound of one chain; a torch.profiler split of one
    shape-A batch;
+4f. the EC-group FFT (``EcFftKernel``) on BN254 G1 at 2^4 .. 2^11 and on
+   BLS12-381 G1 at 2^11, every output against the native C++ EC-FFT (affine),
+   ms (mean of 3) and points/s; the 2^11 inverse against its input; a batch
+   of 16 x 2^11 (``radix_ec_fft_many``) against 16 single calls; K3's chain
+   entry at the path's launch (the BN254 2^11 inverse's scaling by n^-1,
+   stride 0; also 1024 BLS12-381 points, random scalars) and EC-FFT stage
+   entry (stage 0 of the BN254 and of the BLS12-381 2^11 transform) against
+   their plain versions, with both bounds (the operations, and one chain's
+   serial latency from a one-point chain); the launches of a transform (one
+   stage entry a stage, one chain for the inverse's scaling); a
+   torch.profiler split of the BLS12-381 2^11 transform, traced in a fresh
+   process (``--profile-ec-fft``), which must hold every stage launch;
+   ``commit_coefficient_basis`` and ``commit_sparse`` (a seeded
+   half-density ``DensityTracker``, skip 0) at 2^n on phase 4's data, each
+   against the native Pippenger over the same terms, with ms;
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -172,13 +187,12 @@ def random_field(rng, spec, n: int):
 
 
 def random_points(nc, rng, n: int):
-    """n points k*G with random 64-bit k (native scalar mul): the Jacobian
-    (n, 3w) and affine (n, 2w) u64 arrays of the native layout."""
+    """n points k*G with random 64-bit k (native scalar mul) on ``nc``'s
+    curve: the Jacobian (n, 3w) and affine (n, 2w) u64 arrays of the native
+    layout."""
     import numpy as np
 
-    from tpu_ec_torch.curves.params import BLS12_381_G1
-
-    G = nc.affine_from_points([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    G = nc.affine_from_points([(nc.spec.gen_x, nc.spec.gen_y)])
     ks = np.zeros((n, 4), dtype=np.uint64)
     ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
     jac = nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks)
@@ -209,7 +223,8 @@ def affine_to_u64(nc, xy):
 KERNEL_LABELS = (
     ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
     ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")), ("horner_kernel", "K3 horner"),
-    ("double_row", "K3 double_row (device function of the adds)"),
+    ("double_to", "K3 double_to (device function of the adds)"),
+    ("scalar_mul_kernel", "K3 scalar_mul chain"), ("ec_fft_stage_kernel", "K3 ec_fft_stage"),
     ("ntt_leaf_kernel", ("K4 ntt_leaf", "K4 ntt_leaf+level")), ("pease_rows_kernel", "K5 pease_rows"),
     ("pease_stage_kernel", "K5 pease_stage (rows too long for one block)"),
     ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
@@ -320,6 +335,8 @@ class Kernels:
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
         "point_horner_batch": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point_scalar_mul": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "ec_fft_stage": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
@@ -359,10 +376,11 @@ class Kernels:
         return json.dumps({"kernels": out})
 
 
-def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn, rows: dict | None = None):
+def on_path(kernels_mod, report: Kernels | None, owned: tuple, label: str, fn, rows: dict | None = None):
     """Run one path with the launch counters set to 0 just before it and
     read just after; the kernels it owns must each have launched.  Their
-    counts go to the report rows of the same name, or to ``rows[name]``."""
+    counts go to the report rows of the same name, or to ``rows[name]``
+    (none where ``report`` is None)."""
     kernels_mod.reset_launch_counters()
     out = fn()
     launches = kernels_mod.launch_counters()
@@ -370,14 +388,50 @@ def on_path(kernels_mod, report: Kernels, owned: tuple, label: str, fn, rows: di
     missing = [k for k in owned if launches[k] == 0]
     if missing:
         raise SystemExit(f"{label} launched no {missing}")
-    for k in owned:
+    for k in owned if report is not None else ():
         report.launches[(rows or {}).get(k, k)] = launches[k]
     return out
+
+
+def profile_ec_fft(log_n: int) -> int:
+    """One BLS12-381 G1 EC-FFT of 2^log_n random points under torch.profiler,
+    in a process of its own (a process that has traced before may record
+    only part of a transform's launches); up to three traces until one
+    holds every stage launch.  Prints one JSON line: the device split, busy
+    ms, the largest other device ops, the traces taken."""
+    import numpy as np
+    import torch
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.curves.params import BLS12_381_G1
+    from tpu_ec_torch.kernels import build
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.ec_fft import EcFftKernel
+
+    build.load()
+    nc = native_curve(BLS12_381_G1)
+    P = coords_from_u64(nc, random_points(nc, np.random.default_rng(SEED), 1 << log_n)[0], 3, torch.device("cuda"))
+    kern = EcFftKernel(BLS12_381_G1)
+    kern.radix_ec_fft(P)  # the tables and the module's first load stay out of the trace
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        kernels.reset_launch_counters()
+        got = device_split(lambda: kern.radix_ec_fft(P))
+        launches = kernels.launch_counters()["ec_fft_stage"]
+        if got is not None and got[0].get("K3 ec_fft_stage", [0, 0])[1] == launches == log_n:
+            split, busy, others = got
+            print(json.dumps({"split": split, "busy": busy, "others": others, "attempts": attempt}))
+            return 0
+        traced = None if got is None else got[0].get("K3 ec_fft_stage", [0, 0])[1]
+        print(f"trace {attempt}: {traced} of {launches} stage launches", file=sys.stderr)
+    return 1
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=20, help="input size 2^log_n (default 20)")
+    ap.add_argument("--profile-ec-fft", type=int, metavar="LOG_N",
+                    help="only trace one BLS12-381 EC-FFT of 2^LOG_N points (phase 4f runs this)")
     args = ap.parse_args()
 
     import torch
@@ -385,13 +439,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.profile_ec_fft is not None:
+        return profile_ec_fft(args.profile_ec_fft)
     import numpy as np
 
     from tpu_ec_torch import kernels
     from tpu_ec_torch.config import get_config
-    from tpu_ec_torch.curves.params import BLS12_381_G1
+    from tpu_ec_torch.curves.params import BLS12_381_G1, BN254_G1
     from tpu_ec_torch.fields.limbs import sub_borrow
-    from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR
+    from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR, BN254_FQ
     from tpu_ec_torch.kernels import affine as kaff
     from tpu_ec_torch.kernels import build
     from tpu_ec_torch.kernels.butterfly import (bit_reverse_index, pease_stage, pease_stage_plain, pease_stages,
@@ -399,9 +455,12 @@ def main() -> int:
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
     from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
-    from tpu_ec_torch.kernels.point import horner, horner_plain, point_op, point_op_plain
+    from tpu_ec_torch.kernels.point import (ec_fft_stage, ec_fft_stage_plain, horner, horner_plain, point_op,
+                                            point_op_plain, point_scalar_mul, scalar_mul_plain)
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
+    from tpu_ec_torch.ops.density import DensityTracker, compact_by_density
+    from tpu_ec_torch.ops.ec_fft import EcFftKernel
     from tpu_ec_torch.ops.msm import SCALAR_BITS, batch_slab
     from tpu_ec_torch.ops.msm_coz import _bucket_rows, _pair_up, default_window_size_coz
     from tpu_ec_torch.ops.msm_pair import (_bucket_rows, _pair_round, _unfuse, default_window_size_pair,
@@ -1012,6 +1071,211 @@ def main() -> int:
     print("profile AMT batch A: largest other device ops: "
           + "; ".join(f"{name[:60]} {ms:.4f} ms in {cnt}" for name, ms, cnt in others), flush=True)
     print(f"phase 4e: {time.perf_counter() - t_amt:.1f} s", flush=True)
+
+    # 4f. the EC-group FFT, K3's chain and stage entries, the coefficient-basis
+    # and sparse commits
+    t_ec = time.perf_counter()
+    nc_bn = native_curve(BN254_G1)
+    lg_ec = min(11, args.log_n)  # the reference's largest bench degree
+    n_ec = 1 << lg_ec
+
+    def native_affine(ncv, P):
+        """Port Jacobian coordinates -> native affine (n, 2w) u64."""
+        return ncv.to_affine(np.concatenate([ncv.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in P],
+                                            axis=1))
+
+    def ec_fft_sizes(curve, ncv, log_ns):
+        """The forward EC-FFT at each 2^lg, every output against the native
+        EC-FFT; the 2^lg_ec run is the path's, its launches counted.
+        Returns the kernel, the last input and output."""
+        kern = EcFftKernel(curve)
+        for lg in log_ns:
+            m = 1 << lg
+            jac, _ = random_points(ncv, rng, m)
+            P = coords_from_u64(ncv, jac, 3, dev)
+            run = lambda: kern.radix_ec_fft(P)
+            out = on_path(kernels, report if curve is BN254_G1 else None, ("ec_fft_stage",),
+                          f"EC-FFT {curve.name} 2^{lg}", run) if lg == lg_ec else run()
+            if lg == lg_ec and kernels.launch_counters()["ec_fft_stage"] != lg:
+                raise SystemExit(f"EC-FFT 2^{lg}: {kernels.launch_counters()['ec_fft_stage']} stage launches, "
+                                 f"not one a stage ({lg})")
+            t0 = time.perf_counter()
+            bad = int((native_affine(ncv, out) != ncv.to_affine(ncv.ec_fft(jac))).any(axis=1).sum())
+            t_ref = time.perf_counter() - t0
+            if bad:
+                raise SystemExit(f"EC-FFT {curve.name} 2^{lg}: {bad} of {m} outputs disagree with the native EC-FFT")
+            ms, runs = amt_ms(run)
+            print(f"EC-FFT {curve.name} 2^{lg}: all {m} outputs == native EC-FFT ({t_ref:.1f} s of host referee); "
+                  f"{ms:.3f} ms mean of 3 ({', '.join(f'{t:.3f}' for t in runs)}), {m / ms * 1e3:.0f} points/s "
+                  f"| {card}", flush=True)
+        return kern, P, out
+
+    kern_bn, P_bn, out_bn = ec_fft_sizes(BN254_G1, nc_bn, range(min(4, lg_ec), lg_ec + 1))
+    kern_bls, P_bls, _ = ec_fft_sizes(BLS12_381_G1, nc, [lg_ec])
+    back = on_path(kernels, None, ("ec_fft_stage", "point_scalar_mul"), f"EC-FFT inverse 2^{lg_ec}",
+                   lambda: kern_bn.radix_ec_fft(out_bn, inverse=True))
+    inv_counts = kernels.launch_counters()
+    if (inv_counts["ec_fft_stage"], inv_counts["point_scalar_mul"]) != (lg_ec, 1):
+        raise SystemExit(f"EC-FFT inverse 2^{lg_ec}: launches {inv_counts}; expected {lg_ec} stages and 1 chain")
+    report.launches["point_scalar_mul"] = inv_counts["point_scalar_mul"]
+    if not np.array_equal(native_affine(nc_bn, back), native_affine(nc_bn, P_bn)):
+        raise SystemExit(f"EC-FFT inverse 2^{lg_ec} does not give its input back")
+    inv_ms, inv_runs = amt_ms(lambda: kern_bn.radix_ec_fft(out_bn, inverse=True))
+    print(f"EC-FFT {BN254_G1.name} inverse 2^{lg_ec}: == input; {inv_ms:.3f} ms mean of 3 "
+          f"({', '.join(f'{t:.3f}' for t in inv_runs)}) | {card}", flush=True)
+
+    # a batch of 16 transforms of 2^lg_ec against 16 single calls
+    many_in = [coords_from_u64(nc_bn, random_points(nc_bn, rng, n_ec)[0], 3, dev) for _ in range(16)]
+    many_out = kern_bn.radix_ec_fft_many(many_in)
+    singles = [kern_bn.radix_ec_fft(P) for P in many_in]
+    if not all(all(torch.equal(a, b) for a, b in zip(g, w)) for g, w in zip(many_out, singles)):
+        raise SystemExit("radix_ec_fft_many disagrees with single calls")
+    many_ms, many_runs = amt_ms(lambda: kern_bn.radix_ec_fft_many(many_in))
+    single_ms, _ = amt_ms(lambda: [kern_bn.radix_ec_fft(P) for P in many_in])
+    print(f"radix_ec_fft_many 16 x 2^{lg_ec} BN254: each == its single call; {many_ms:.3f} ms mean of 3 "
+          f"({', '.join(f'{t:.3f}' for t in many_runs)}), {16 * n_ec / many_ms * 1e3:.0f} points/s; 16 single "
+          f"calls {single_ms:.3f} ms | {card}", flush=True)
+    del many_in, many_out, singles
+
+    def chain_work(k):
+        """(point ops, field products) of the chains on the plain scalars k
+        (n, 16): a double a bit below the top set bit, an add a set bit below
+        it; and the longest chain's point ops."""
+        kn = k.cpu().numpy().astype(np.int64)
+        vals = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in kn]
+        dbls = [max(v.bit_length() - 1, 0) for v in vals]
+        adds = [max(bin(v).count("1") - 1, 0) for v in vals]
+        return sum(dbls) + sum(adds), 7 * sum(dbls) + 16 * sum(adds), max(d + a for d, a in zip(dbls, adds))
+
+    def op_latency(spec, P):
+        """Device ms of one point op in series: a one-point chain over 2^256 - 1
+        (255 doubles and 255 adds), one thread."""
+        ones = torch.full((1, 16), 0xFFFF, dtype=torch.int32, device=dev)
+        return cuda_ms(lambda: point_scalar_mul(spec, [c[:1] for c in P], ones)) / 510
+
+    L_bn = BN254_FQ.n_limbs
+    lat_bn = op_latency(BN254_FQ, P_bn)
+
+    # K3's chain entry at the path's own launch: the BN254 2^lg_ec inverse's
+    # scaling, its bit-reversed stage output times one scalar n^-1 (row
+    # stride 0); the kernel's output is the inverse's result
+    tw_inv, n_inv, rev_inv = kern_bn._domain_tensors(lg_ec, True)
+    Y = tuple(out_bn)
+    for st in range(lg_ec):
+        Y = ec_fft_stage(BN254_FQ, Y, tw_inv, st)
+    Y = tuple(c.index_select(-2, rev_inv) for c in Y)
+    got = point_scalar_mul(BN254_FQ, Y, n_inv)
+    if not all(torch.equal(a, b) for a, b in zip(got, back)):
+        raise SystemExit("K3 scalar_mul chain: the inverse's scaling, launched alone, is not the inverse's result")
+    want, p_ms = cuda_ms_once(lambda: scalar_mul_plain(BN254_FQ, Y, n_inv))
+    c_ms = cuda_ms(lambda: point_scalar_mul(BN254_FQ, Y, n_inv))
+    ops_n, prods, longest = chain_work(n_inv.expand(n_ec, -1))
+    check("point_scalar_mul", f"K3 scalar_mul chain ({n_ec}, {L_bn}), the inverse's n^-1 (stride 0), "
+          f"{ops_n} point ops", got, want, c_ms, p_ms,
+          nbytes=(n_ec * 6 * L_bn + 16) * 4, imads=prods * mont_imads(L_bn // 2))
+    cb = report.rows["point_scalar_mul"]["bound_ms"]
+    print(f"K3 scalar_mul chain: {c_ms:.4f} ms, bound {cb:.4f} ms (operations), ms / bound {c_ms / cb:.1f}; "
+          f"serial bound {longest * lat_bn:.4f} ms (one chain, {longest} point ops x {lat_bn * 1e3:.2f} us, "
+          f"a one-point chain's), ms / serial {c_ms / (longest * lat_bn):.2f} | {card}", flush=True)
+    del want, got, Y
+
+    # the chain entry at 12 words: n_ec / 2 (1024) BLS12-381 points of the
+    # transform's input, random plain Fr scalars (rows 0-2: 0, 1, r - 1)
+    h_ec = n_ec // 2
+    P1k = [c[:h_ec] for c in P_bls]
+    k1k = torch.as_tensor(random_field(rng, BLS12_381_FR, h_ec)).to(dev, torch.int32)
+    want, p_ms = cuda_ms_once(lambda: scalar_mul_plain(BLS12_381_FQ, P1k, k1k))
+    c_ms = cuda_ms(lambda: point_scalar_mul(BLS12_381_FQ, P1k, k1k))
+    ops_n, _, longest = chain_work(k1k)
+    check("point_scalar_mul", f"K3 scalar_mul chain ({h_ec}, {L_fq}), random scalars, {ops_n} point ops",
+          point_scalar_mul(BLS12_381_FQ, P1k, k1k), want, c_ms, p_ms)
+    lat_fq = op_latency(BLS12_381_FQ, P1k)
+    print(f"K3 scalar_mul chain ({h_ec}, {L_fq}): serial bound {longest * lat_fq:.4f} ms (the longest chain, "
+          f"{longest} point ops x {lat_fq * 1e3:.2f} us, a one-point chain's), ms / serial "
+          f"{c_ms / (longest * lat_fq):.2f} | {card}", flush=True)
+    del want
+
+    # K3's EC-FFT stage entry: stage 0 of the BN254 2^lg_ec transform (1024
+    # butterflies, scalars w^i)
+    tw_bn = kern_bn._domain_tensors(lg_ec, False)[0]
+    want, p_ms = cuda_ms_once(lambda: ec_fft_stage_plain(BN254_FQ, P_bn, tw_bn, 0))
+    s_ms = cuda_ms(lambda: ec_fft_stage(BN254_FQ, P_bn, tw_bn, 0))
+    ops_n, prods, longest = chain_work(tw_bn)
+    check("ec_fft_stage", f"K3 ec_fft_stage stage 0 ({n_ec}, {L_bn}), {h_ec} butterflies, {ops_n} chain point ops",
+          ec_fft_stage(BN254_FQ, P_bn, tw_bn, 0), want, s_ms, p_ms,
+          nbytes=h_ec * (12 * L_bn + 16) * 4, imads=(prods + h_ec * 32) * mont_imads(L_bn // 2))
+    sb = report.rows["ec_fft_stage"]["bound_ms"]
+    serial = (longest + 2) * lat_bn
+    print(f"K3 ec_fft_stage: {s_ms:.4f} ms, bound {sb:.4f} ms (operations), ms / bound {s_ms / sb:.1f}; serial "
+          f"bound {serial:.4f} ms (an add, a sub and the longest chain, {longest} point ops, x "
+          f"{lat_bn * 1e3:.2f} us, a one-point chain's), ms / serial {s_ms / serial:.2f}; a 2^{lg_ec} transform is "
+          f"{lg_ec} such stages in series | {card}", flush=True)
+    del want
+
+    # the BLS12-381 transform's stages one by one (CUDA events), stage 0
+    # held against its plain version, then its profile in a fresh process
+    (tw_bls, _, rev_bls), Y, stage_ms = kern_bls._domain_tensors(lg_ec, False), tuple(P_bls), []
+    for st in range(lg_ec):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        Z = ec_fft_stage(BLS12_381_FQ, Y, tw_bls, st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        stage_ms.append(ev[0].elapsed_time(ev[1]))
+        if st == 0:
+            want, p_ms = cuda_ms_once(lambda: ec_fft_stage_plain(BLS12_381_FQ, Y, tw_bls, 0))
+            check("ec_fft_stage", f"K3 ec_fft_stage stage 0 ({n_ec}, {L_fq}), {h_ec} butterflies", Z, want,
+                  stage_ms[0], p_ms)
+            del want
+        Y = Z
+    if not all(torch.equal(a.index_select(-2, rev_bls), b) for a, b in zip(Y, kern_bls.radix_ec_fft(P_bls))):
+        raise SystemExit(f"EC-FFT BLS12-381 2^{lg_ec}: its stages one by one disagree with the transform")
+    print(f"EC-FFT BLS12-381 2^{lg_ec} stages 0..{lg_ec - 1}: {', '.join(f'{t:.3f}' for t in stage_ms)} ms "
+          f"(sum {sum(stage_ms):.3f}; s < 5: the lanes of a warp hold different scalars) | {card}", flush=True)
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-ec-fft", str(lg_ec)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        raise SystemExit(f"profile EC-FFT BLS12-381 2^{lg_ec}: exit {res.returncode}\n{res.stderr[-2000:]}")
+    prof = json.loads(res.stdout.strip().splitlines()[-1])
+    split, busy = prof["split"], prof["busy"]
+    parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
+    k3_ms = sum(v[0] for k, v in split.items() if k.startswith("K3"))
+    print(f"profile EC-FFT BLS12-381 2^{lg_ec} (a fresh process, {prof['attempts']} trace(s)): device busy "
+          f"{busy:.4f} ms, K3 {k3_ms:.4f} ms ({k3_ms / busy:.1%}), all {lg_ec} stage launches traced; hand kernels "
+          f"{parts}; other device ops: " + "; ".join(f"{name[:60]} {ms:.4f} ms in {cnt}" for name, ms, cnt in
+                                                     prof["others"]) + f" | {card}", flush=True)
+
+    # the coefficient-basis and sparse commits on phase 4's bases and
+    # coefficients, against the native Pippenger over the same terms
+    plain_scal = nfr.from_mont(nfr.from_halflimbs(coeffs_np.astype(np.uint64)))
+    dens = DensityTracker()
+    for i, bit in enumerate(rng.random(n) < 0.5):
+        dens.add_element()
+        if bit:
+            dens.inc(i)
+    idx = np.nonzero(dens.generate_mask(n))[0]
+    for label, run, aff, scal in (
+        ("commit_coefficient_basis", lambda: pipe.commit_coefficient_basis(coeffs, bases), bases_aff, plain_scal),
+        ("commit_sparse", lambda: pipe.commit_sparse(coeffs, bases, dens), bases_aff[idx], plain_scal[idx]),
+    ):
+        got = on_path(kernels, None, ("mont_mul", "point"), f"{label} 2^{args.log_n}", run)
+        t0 = time.perf_counter()
+        if not np.array_equal(affine_to_u64(nc, pipe.ops.to_affine(got)), nc.to_affine(nc.msm(aff, scal)[None, :])):
+            raise SystemExit(f"{label} disagrees with the native Pippenger MSM")
+        t_ref = time.perf_counter() - t0
+        ms, runs = amt_ms(run)
+        print(f"{label} 2^{args.log_n} ({len(scal)} terms): == native Pippenger ({t_ref:.1f} s of host referee); "
+              f"{ms:.2f} ms mean of 3 ({', '.join(f'{t:.2f}' for t in runs)}) | {card}", flush=True)
+    # the sparse commit's parts: the compaction (host mask, gathers) and the
+    # MSM of the compacted terms
+    pscal = pipe.fr.from_mont(coeffs)
+    compact_ms, _ = amt_ms(lambda: compact_by_density(dens, bases, pscal))
+    cb, cs_ = compact_by_density(dens, bases, pscal)
+    msm_ms, _ = amt_ms(lambda: msm.multiexp(cb, cs_))
+    print(f"commit_sparse parts: compaction {compact_ms:.2f} ms, MSM of the {cs_.shape[0]} terms {msm_ms:.2f} ms "
+          f"| {card}", flush=True)
+    del cb, cs_, pscal
+    print(f"phase 4f: {time.perf_counter() - t_ec:.1f} s", flush=True)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

@@ -439,3 +439,139 @@ def test_batch_k3_launches_one_slab(cuda):
     want = rounds + max(1, math.ceil(math.log2(rounds + 2))) + 2 * (w - 1) + 1
     counts = kernels.launch_counters()
     assert (counts["point"], counts["point_horner"]) == (want, 1)
+
+
+def _chain_rows(ops, cuda, n=64):
+    """n Jacobian points (z != 1), row 0 the identity, row 1 a garbage
+    identity (z = 0, x, y != 0: P - P), and n plain scalars: 0, 1, 2,
+    r - 1, r + 2 (its last add meets acc == P), 2^256 - 1, small and
+    random values."""
+    _, P = _points(ops, n)
+    P = [c.clone() for c in P]
+    G = ops.sub(tuple(c[1:2] for c in P), tuple(c[1:2] for c in P))
+    for c, g in zip(P, G):
+        c[0] = 0
+        c[1] = g[0]
+    r = ops.spec.scalar.modulus
+    rng = np.random.default_rng(30)
+    ks = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+    ks[:8] = [2**256 - 1, r - 1, 0, 1, 2, r - 1, r + 2, 5]
+    ks[8:16] = [int(v) for v in rng.integers(0, 1 << 10, 8)]
+    k = np.stack([[(v >> (16 * i)) & 0xFFFF for i in range(16)] for v in ks]).astype(np.int64)
+    return P, torch.as_tensor(k).to(cuda, torch.int32)
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
+def test_scalar_mul_kernel_matches_plain(cuda, curve):
+    """K3's chain entry (one thread a point, the two shortcuts) == the plain
+    256-step loop, per-row scalars and one scalar for all rows (stride 0)."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import point_scalar_mul, scalar_mul_plain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, k = _chain_rows(ops, cuda)
+    got = point_scalar_mul(spec.base, P, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, scalar_mul_plain(spec.base, P, k)))
+    one = k[6]
+    got = point_scalar_mul(spec.base, P, one)
+    assert all(torch.equal(g, w) for g, w in zip(got, scalar_mul_plain(spec.base, P, one)))
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
+def test_ec_fft_stage_kernel_matches_plain(cuda, curve):
+    """K3's EC-FFT stage entry == its plain version at every stage of two
+    transforms of 8 points, with a == b, a == -b and identity rows."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import ec_fft_stage, ec_fft_stage_plain
+    from tpu_ec_torch.ops.ec_fft import get_ec_domain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    _, P = _points(ops, 16)
+    Y = [c.reshape(2, 8, -1).clone() for c in P]
+    negy = ops.F.neg(Y[1][1, 1:2])[0]
+    for c in Y:
+        c[0, 4] = c[0, 0]  # a == b
+        c[1, 5] = c[1, 1]
+        c[1, 2] = 0  # identity
+    Y[1][1, 5] = negy  # a == -b
+    tw = torch.as_tensor(get_ec_domain(spec, 3).twiddle_scalars.astype(np.int64)).to(cuda, torch.int32)
+    for s in range(3):
+        got, want = ec_fft_stage(spec.base, Y, tw, s), ec_fft_stage_plain(spec.base, Y, tw, s)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), s
+        Y = list(want)
+
+
+def test_ec_fft_matches_native(cuda):
+    """A 2^8 BN254 EC-FFT on the card == the native C++ EC-FFT (affine), its
+    inverse gives the points back, one stage launch a stage and one chain
+    launch for the inverse's scaling."""
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.curves import BN254_G1
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.ec_fft import EcFftKernel
+
+    n = 1 << 8
+    nc = native_curve(BN254_G1)
+    rng = np.random.default_rng(31)
+    ks = np.zeros((n, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    G = nc.affine_from_points([(BN254_G1.gen_x, BN254_G1.gen_y)])
+    jac = nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks)
+    w = nc.w
+    P = tuple(torch.as_tensor(nc.fq.to_halflimbs(jac[:, i * w : (i + 1) * w]).astype(np.int64)).to(cuda, torch.int32)
+              for i in range(3))
+    kern = EcFftKernel(BN254_G1, cuda)
+    kernels.reset_launch_counters()
+    out = kern.radix_ec_fft(P)
+    counts = kernels.launch_counters()
+    assert (counts["ec_fft_stage"], counts["point_scalar_mul"]) == (8, 0)
+    got = np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in out], axis=1)
+    assert np.array_equal(nc.to_affine(got), nc.to_affine(nc.ec_fft(jac)))
+    kernels.reset_launch_counters()
+    back = kern.radix_ec_fft(out, inverse=True)
+    counts = kernels.launch_counters()
+    assert (counts["ec_fft_stage"], counts["point_scalar_mul"]) == (8, 1)
+    ops = kern.ops
+    assert all(torch.equal(a, b) for a, b in zip(ops.to_affine(back), ops.to_affine(P)))
+
+
+def test_sparse_and_coefficient_commits_match_native(cuda):
+    """commit_coefficient_basis and commit_sparse (half density, skip 16) at
+    2^12 on the card == the native Pippenger over the same terms."""
+    from tpu_ec_torch.native import native_curve, native_field
+    from tpu_ec_torch.ops.density import DensityTracker
+    from tpu_ec_torch.ops.pipeline import CommitPipeline
+
+    n, skip = 1 << 12, 16
+    nc, nfr = native_curve(BLS12_381_G1), native_field(BLS12_381_G1.scalar)
+    rng = np.random.default_rng(32)
+    ks = np.zeros((n + skip, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n + skip, dtype=np.uint64)
+    G = nc.affine_from_points([(BLS12_381_G1.gen_x, BLS12_381_G1.gen_y)])
+    aff = nc.to_affine(nc.scalar_mul(np.broadcast_to(G, (n + skip, G.shape[1])).copy(), ks))
+    w = nc.w
+    bases = tuple(
+        torch.as_tensor(nc.fq.to_halflimbs(aff[:, i * w : (i + 1) * w]).astype(np.int64)).to(cuda, torch.int32)
+        for i in range(2)
+    )
+    coeffs = _field(BLS12_381_G1.scalar, n, 33)
+    scal = nfr.from_mont(nfr.from_halflimbs(coeffs.astype(np.uint64)))
+    pipe = CommitPipeline(BLS12_381_G1, cuda)
+    c = torch.as_tensor(coeffs).to(cuda, torch.int32)
+
+    def affine_u64(P):
+        return np.concatenate([nc.fq.from_halflimbs(t.cpu().numpy().astype(np.uint64))
+                               for t in pipe.ops.to_affine(P)], axis=1)
+
+    got = affine_u64(pipe.commit_coefficient_basis(c, tuple(t[:n] for t in bases)))
+    assert np.array_equal(got, nc.to_affine(nc.msm(aff[:n], scal)[None, :]))
+    dens = DensityTracker()
+    for i, bit in enumerate(rng.random(n) < 0.5):
+        dens.add_element()
+        if bit:
+            dens.inc(i)
+    idx = np.nonzero(dens.generate_mask(n))[0]
+    got = affine_u64(pipe.commit_sparse(c, bases, dens, skip=skip))
+    assert np.array_equal(got, nc.to_affine(nc.msm(aff[idx + skip], scal[idx])[None, :]))

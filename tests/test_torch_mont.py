@@ -91,3 +91,29 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     a = torch.zeros((4, 16), dtype=torch.int32, device="meta")
     with pytest.raises(DeviceError):
         mont_mul(tfp.BLS12_381_FR, a, a)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_mont_plain_exact_at_extreme_limbs(name):
+    """K1's plain version sums its columns in float64; at the largest
+    columns it still equals Python ints of the same reduction.  The inputs
+    include every half-limb 0xFFFF (R - 1, not canonical, the largest
+    columns) and (p - 1)^2; the model is SOS with one conditional
+    subtraction: m = (ab mod R) n' mod R, u = (ab + mp) / R, less p where
+    u >= p."""
+    spec = getattr(tfp, name)
+    p, L = spec.modulus, spec.n_limbs
+    R = 1 << (16 * L)
+    nprime = -pow(p, -1, R) % R
+    pairs = [(R - 1, R - 1), (p - 1, p - 1), (R - 1, p - 1), (p - 1, R - 1), (R - 1, 1), (p - 1, 1), (0, R - 1)]
+
+    def limbs(xs):
+        return limbs_to_torch(np.array([[(x >> (16 * i)) & 0xFFFF for i in range(L)] for x in xs]), "cpu")
+
+    def model(a, b):
+        u = (a * b + (a * b % R) * nprime % R * p) // R
+        return u - p if u >= p else u
+
+    got = limbs_to_numpy(mont_mul_plain(spec, limbs([a for a, _ in pairs]), limbs([b for _, b in pairs])))
+    assert [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in got] == [model(a, b) for a, b in pairs]
+    assert model(p - 1, p - 1) == (p - 1) ** 2 * pow(R, -1, p) % p

@@ -6,10 +6,11 @@ of (..., L) half-limb tensors in Montgomery form:
   affine   (x, y)     with (0, 0) = identity
   jacobian (x, y, z)  with z = 0  = identity
 
-``add``, ``add_mixed`` and ``double`` go through kernel K3
+``add``, ``add_mixed``, ``double`` and ``scalar_mul`` go through kernel K3
 (``kernels/point.py``) for every batch size: its plain version on the CPU,
-the CUDA kernel on the card.  ``to_affine`` inverts every z with one
-Montgomery batch inversion (kernel K1 for the products).
+the CUDA kernel on the card (``scalar_mul`` as one launch of K3's chain
+entry).  ``to_affine`` inverts every z with one Montgomery batch inversion,
+and ``eq`` compares by cross-multiplication (kernel K1 for the products).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from ..fields.fp import FieldOps
 from ..fields.limbs import resolve_device
-from ..kernels.point import point_op
+from ..kernels.point import point_op, point_scalar_mul
 from .params import CurveSpec
 
 
@@ -50,7 +51,7 @@ class PointOps:
 
     def __init__(self, spec: CurveSpec, device="cuda"):
         if spec.ext != 1:
-            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port (ROADMAP.md queue 1, item 9)")
+            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port (ROADMAP.md queue 1, item 3)")
         self.spec = spec
         self.device = resolve_device(device)
         self.fq = FieldOps(spec.base, self.device)
@@ -72,6 +73,17 @@ class PointOps:
 
     def select(self, cond, P, Q):
         return tuple(self.F.select(cond, p, q) for p, q in zip(P, Q))
+
+    def eq(self, P, Q):
+        """Jacobian equality by cross-multiplication (no inversion): X1 Z2^2
+        == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3; an identity equals only an
+        identity."""
+        F = self.F
+        z1z1, z2z2 = F.sqr(P[2]), F.sqr(Q[2])
+        x_eq = F.eq(F.mul(P[0], z2z2), F.mul(Q[0], z1z1))
+        y_eq = F.eq(F.mul(P[1], F.mul(Q[2], z2z2)), F.mul(Q[1], F.mul(P[2], z1z1)))
+        i1, i2 = self.is_identity(P), self.is_identity(Q)
+        return torch.where(i1 | i2, i1 == i2, x_eq & y_eq)
 
     # -- conversions -------------------------------------------------------
 
@@ -114,6 +126,21 @@ class PointOps:
 
     def neg(self, P):
         return (P[0], self.F.neg(P[1]), P[2])
+
+    def neg_affine(self, A):
+        return (A[0], self.F.neg(A[1]))
+
+    def sub(self, P, Q):
+        """P - Q = P + (-Q) (PointOps.add, so P == Q gives z = 0 with the
+        formula's x and y, as tpu_ec's does)."""
+        return self.add(P, self.neg(Q))
+
+    def scalar_mul(self, P, k):
+        """[k] P by MSB-first double-and-add over 256 bits, bit-identical to
+        tpu_ec's ``scalar_mul``.  ``k``: (..., 16) plain (non-Montgomery) Fr
+        limbs that broadcast against P's batch; one scalar for every point
+        (k of shape (16,) or (1, 16)) is not copied per row."""
+        return point_scalar_mul(self.spec.base, list(P), k)
 
     # -- host conversion ----------------------------------------------------
 

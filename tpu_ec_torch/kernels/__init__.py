@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (csrc/), their wrappers and plain versions.
 
-K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``
-and ``point.horner`` (its launches also counted apart), K4
+K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``,
+``point.horner``, ``point.point_scalar_mul`` and ``point.ec_fft_stage``
+(the last three also counted apart), K4
 ``ntt_leaf.ntt_leaf`` (counted apart with and without its level epilogue),
 K5 ``butterfly.pease_stages`` and ``pease_stage``, K6 ``affine.coz_apply``,
 K7 ``affine.affine_denom`` and ``affine.affine_apply``.
@@ -12,7 +13,8 @@ kernel on CUDA tensors (or raises), and counts its launches.
 from . import affine, butterfly, inter, mont, ntt_leaf, point
 
 _COUNTERS = (
-    mont.LAUNCHES, inter.LAUNCHES, point.LAUNCHES, point.HORNER_LAUNCHES,
+    mont.LAUNCHES, inter.LAUNCHES, point.LAUNCHES, point.HORNER_LAUNCHES, point.CHAIN_LAUNCHES,
+    point.STAGE_LAUNCHES,
     ntt_leaf.LAUNCHES, ntt_leaf.LEVEL_LAUNCHES, butterfly.LAUNCHES,
     affine.COZ_LAUNCHES, affine.DENOM_LAUNCHES, affine.APPLY_LAUNCHES,
 )

@@ -126,6 +126,10 @@ def load() -> ctypes.CDLL:
         lib.tec_point.restype = i32
         lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i64, i32, vp, vp, vp]
         lib.tec_point_horner.restype = i32
+        lib.tec_point_scalar_mul.argtypes = [i32, vp, vp, vp, i64, vp, i64, vp, vp]
+        lib.tec_point_scalar_mul.restype = i32
+        lib.tec_ec_fft_stage.argtypes = [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]
+        lib.tec_ec_fft_stage.restype = i32
         lib.tec_pease_rows_fit.argtypes = [i32, i32]
         lib.tec_pease_rows_fit.restype = i32
         lib.tec_pease_rows.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp]

@@ -15,6 +15,7 @@ from ..fields.params import FieldSpec
 from .build import Launches, check, check_cuda, field_consts, load, stream
 
 LAUNCHES = Launches("mont_mul")
+_LO21 = (1 << 21) - 1
 
 
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -26,7 +27,11 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     a64 = a.to(torch.int64)
     b64 = b.to(torch.int64)
     t = mul_cols(a64, b64, 2 * L)  # columns of a*b
-    m = normalize(mul_cols_const(normalize(t, L), spec.nprime_limbs, L), L)  # (ab mod R) n'
+    # m = (ab mod R) n' mod R from the low columns of t as they are (each
+    # < L 2^32), cut at bit 21 so that both float64 products stay exact
+    lo = t[..., :L]
+    m_cols = mul_cols_const(lo & _LO21, spec.nprime_limbs, L) + (mul_cols_const(lo >> 21, spec.nprime_limbs, L) << 21)
+    m = normalize(m_cols, L)
     u = normalize(t + mul_cols_const(m, spec.p_limbs, 2 * L), 2 * L + 1)  # ab + mp, R | u
     hi, top = u[..., L : 2 * L], u[..., 2 * L]
     d, borrow = sub_borrow(hi, const_tensor(spec.p_limbs, a.device))

@@ -1,13 +1,17 @@
 """K3: batched Jacobian point ops (add, add_mixed, double), and their plain version.
 
 Replaces ``tpu_ec/ops/pallas/point.py::_point_call_list`` / ``_point_call``
-(entries ``jac_add``, ``jac_add_mixed``, ``jac_double``), and runs the
-MSM's Horner window combine (``tpu_ec/ops/msm_pair.py::horner_combine``, and
-for a batch of MSMs ``tpu_ec/ops/msm_batch.py::horner_combine_batch``) in
-one launch.  The kernel is ``csrc/point.cu``.  The plain version below
-evaluates the same formulas with the same select tree as
-``tpu_ec/ops/pallas/point.py`` (it computes the doubling branch only on the
-rows that select it), so both are bit-identical to ``tpu_ec``'s PointOps.
+(entries ``jac_add``, ``jac_add_mixed``, ``jac_double``), and runs in one
+launch each: the MSM's Horner window combine
+(``tpu_ec/ops/msm_pair.py::horner_combine``, and for a batch of MSMs
+``tpu_ec/ops/msm_batch.py::horner_combine_batch``), the scalar
+multiplication chain of ``tpu_ec/curves/point.py::PointOps.scalar_mul``
+(one thread a point) and one stage of the EC-group FFT
+(``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one thread a butterfly).  The
+kernel is ``csrc/point.cu``.  The plain version below evaluates the same
+formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
+computes the doubling branch only on the rows that select it), so both are
+bit-identical to ``tpu_ec``'s PointOps.
 """
 
 from __future__ import annotations
@@ -18,11 +22,15 @@ import torch
 
 from ..fields.limbs import add_plain, const_tensor, sub_plain
 from ..fields.params import FieldSpec
-from .build import Launches, check, field_consts, load, row_views, stream
+from .build import Launches, check, check_cuda, field_consts, load, row_views, stream
 from .mont import mont_mul_plain
 
-LAUNCHES = Launches("point")  # every K3 launch, the Horner entry's too
+LAUNCHES = Launches("point")  # every K3 launch, those of the entries below too
 HORNER_LAUNCHES = Launches("point_horner")  # the Horner entry's launches
+CHAIN_LAUNCHES = Launches("point_scalar_mul")  # the scalar-multiplication chain's
+STAGE_LAUNCHES = Launches("ec_fft_stage")  # the EC-FFT stage entry's
+
+SCALAR_LIMBS = 16  # plain Fr scalars of both curves: 256 bits, the chain's length
 
 OPS = {"add": 0, "add_mixed": 1, "double": 2}
 N_IN = {"add": (6,), "add_mixed": (5, 4), "double": (3,)}
@@ -44,8 +52,16 @@ class _PlainField:
     def mul(self, a, b):
         return mont_mul_plain(self.spec, a, b)
 
-    def sqr(self, a):
-        return mont_mul_plain(self.spec, a, a)
+    def mul_many(self, *pairs) -> tuple:
+        """The products a * b of independent pairs, as one batched product
+        where every operand has one shape (the cost of a plain product on a
+        small batch is its count of tensor ops, not its rows)."""
+        shape = pairs[0][0].shape
+        if len(pairs) == 1 or any(t.shape != shape for pair in pairs for t in pair):
+            return tuple(self.mul(a, b) for a, b in pairs)
+        a = torch.stack([a for a, _ in pairs])
+        b = torch.stack([b for _, b in pairs])
+        return tuple(mont_mul_plain(self.spec, a, b).unbind(0))
 
     def double(self, a):
         return add_plain(self.spec, a, a)
@@ -60,18 +76,17 @@ class _PlainField:
 
 
 def _double_body(F, X, Y, Z):
-    """dbl-2009-l (ec.cl:17-42); identity-safe (Z3 = 2YZ = 0)."""
-    A = F.sqr(X)
-    B = F.sqr(Y)
-    C = F.sqr(B)
-    D = F.double(F.sub(F.sub(F.sqr(F.add(X, B)), A), C))
+    """dbl-2009-l (ec.cl:17-42); identity-safe (Z3 = 2YZ = 0).  The
+    independent products of each step go in one batched call."""
+    A, B, YZ = F.mul_many((X, X), (Y, Y), (Y, Z))
     E = F.add(F.double(A), A)
-    FF = F.sqr(E)
+    XB = F.add(X, B)
+    C, XB2, FF = F.mul_many((B, B), (XB, XB), (E, E))
+    D = F.double(F.sub(F.sub(XB2, A), C))
     X3 = F.sub(FF, F.double(D))
     eightC = F.double(F.double(F.double(C)))
-    Y3 = F.sub(F.mul(E, F.sub(D, X3)), eightC)
-    Z3 = F.double(F.mul(Y, Z))
-    return X3, Y3, Z3
+    (EDX,) = F.mul_many((E, F.sub(D, X3)))
+    return X3, F.sub(EDX, eightC), F.double(YZ)
 
 
 def _double_where(F, cond, X, Y, Z):
@@ -87,21 +102,19 @@ def _double_where(F, cond, X, Y, Z):
 
 
 def _add_body(F, X1, Y1, Z1, X2, Y2, Z2):
-    """add-2007-bl with the select completeness of PointOps.add."""
-    Z1Z1 = F.sqr(Z1)
-    Z2Z2 = F.sqr(Z2)
-    U1 = F.mul(X1, Z2Z2)
-    U2 = F.mul(X2, Z1Z1)
-    S1 = F.mul(Y1, F.mul(Z2, Z2Z2))
-    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    """add-2007-bl with the select completeness of PointOps.add (the
+    independent products of each step in one batched call)."""
+    Z12 = F.add(Z1, Z2)
+    Z1Z1, Z2Z2, Z12sq = F.mul_many((Z1, Z1), (Z2, Z2), (Z12, Z12))
+    U1, U2, Z2c, Z1c = F.mul_many((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1))
     H = F.sub(U2, U1)
-    I = F.sqr(F.double(H))
-    J = F.mul(H, I)
+    H2 = F.double(H)
+    S1, S2, I, Z3 = F.mul_many((Y1, Z2c), (Y2, Z1c), (H2, H2), (F.sub(F.sub(Z12sq, Z1Z1), Z2Z2), H))
     rr = F.double(F.sub(S2, S1))
-    V = F.mul(U1, I)
-    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
-    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(S1, J)))
-    Z3 = F.mul(F.sub(F.sub(F.sqr(F.add(Z1, Z2)), Z1Z1), Z2Z2), H)
+    J, V, rr2 = F.mul_many((H, I), (U1, I), (rr, rr))
+    X3 = F.sub(F.sub(rr2, J), F.double(V))
+    rVX, S1J = F.mul_many((rr, F.sub(V, X3)), (S1, J))
+    Y3 = F.sub(rVX, F.double(S1J))
     i1, i2 = F.is_zero(Z1), F.is_zero(Z2)
     same = (~i1) & (~i2) & F.is_zero(H) & F.is_zero(rr)
     dX, dY, dZ = _double_where(F, same, X1, Y1, Z1)
@@ -115,19 +128,20 @@ def _add_body(F, X1, Y1, Z1, X2, Y2, Z2):
 
 def _add_mixed_body(F, X1, Y1, Z1, X2, Y2):
     """madd-2007-bl (ec.cl:45-82) with select completeness; (X2, Y2) affine,
-    (0, 0) = identity."""
-    Z1Z1 = F.sqr(Z1)
-    U2 = F.mul(X2, Z1Z1)
-    S2 = F.mul(Y2, F.mul(Z1, Z1Z1))
+    (0, 0) = identity (the independent products of each step in one
+    batched call)."""
+    (Z1Z1,) = F.mul_many((Z1, Z1))
+    U2, Z1c = F.mul_many((X2, Z1Z1), (Z1, Z1Z1))
     H = F.sub(U2, X1)
-    HH = F.sqr(H)
+    Z1H = F.add(Z1, H)
+    S2, HH, Z1H2 = F.mul_many((Y2, Z1c), (H, H), (Z1H, Z1H))
     I = F.double(F.double(HH))
-    J = F.mul(H, I)
     rr = F.double(F.sub(S2, Y1))
-    V = F.mul(X1, I)
-    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
-    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(Y1, J)))
-    Z3 = F.sub(F.sub(F.sqr(F.add(Z1, H)), Z1Z1), HH)
+    J, V, rr2 = F.mul_many((H, I), (X1, I), (rr, rr))
+    X3 = F.sub(F.sub(rr2, J), F.double(V))
+    rVX, Y1J = F.mul_many((rr, F.sub(V, X3)), (Y1, J))
+    Y3 = F.sub(rVX, F.double(Y1J))
+    Z3 = F.sub(F.sub(Z1H2, Z1Z1), HH)
     i1 = F.is_zero(Z1)
     i2 = F.is_zero(X2) & F.is_zero(Y2)
     same = (~i1) & (~i2) & F.is_zero(H) & F.is_zero(rr)
@@ -286,3 +300,134 @@ def horner(spec: FieldSpec, partials, w: int) -> tuple:
     LAUNCHES.count += 1
     HORNER_LAUNCHES.count += 1
     return tuple(outs)
+
+
+def _neg_plain(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
+    """-y mod p on canonical int64 half-limbs (FieldOps.neg: 0 stays 0)."""
+    return sub_plain(spec, torch.zeros_like(y), y)
+
+
+def scalar_mul_plain(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
+    """Plain version of the chain: PointOps.scalar_mul as tpu_ec runs it
+    (tpu_ec/curves/point.py:334-351), MSB first from the identity over the
+    256 bits, acc = double(acc), then acc = add(acc, P) where the bit is
+    set, one batched op at a time.  The steps above the batch's top set bit
+    (acc is (0, 0, 0) there, and so is its double) and the adds of a bit no
+    row has set (the select keeps acc) are skipped.  ``coords``: P's (X, Y,
+    Z), (..., L); ``k``: (..., 16) plain scalar limbs that broadcast
+    against P's batch.  Returns (X, Y, Z) in the inputs' dtype."""
+    P = [c.to(torch.int64) for c in coords]
+    kk = k.to(torch.int64).expand(P[0].shape[:-1] + (k.shape[-1],))
+    acc = [torch.zeros_like(c) for c in P]
+    flat = kk.reshape(-1, kk.shape[-1])
+    limbs = (flat != 0).any(dim=0).nonzero()
+    if limbs.numel():
+        j = int(limbs[-1])
+        top = 16 * j + int(flat[:, j].max()).bit_length() - 1
+        for b in range(top, -1, -1):
+            if b != top:
+                acc = list(point_op_plain(spec, "double", acc))
+            bit = ((kk[..., b // 16] >> (b % 16)) & 1) != 0
+            if bool(bit.any()):
+                acc = list(point_op_plain(spec, "add", [*acc, *P], keep=~bit))
+    return tuple(a.to(coords[0].dtype) for a in acc)
+
+
+def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
+    """[k] P for a batch of Jacobian points, in one kernel launch (one
+    thread a point runs the whole chain; bit-identical to
+    :func:`scalar_mul_plain`).  ``coords``: P's (X, Y, Z), (..., L); ``k``:
+    (..., 16) plain (non-Montgomery) scalar limbs that broadcast against P's
+    batch (a single scalar goes to the kernel with row stride 0).  CPU
+    tensors take the plain version; on CUDA everything is int32 and the
+    kernel runs on the current stream.  Returns (X, Y, Z), (..., L)."""
+    if k.shape[-1] != SCALAR_LIMBS or k.device != coords[0].device:
+        raise ValueError(f"scalars: expected (..., {SCALAR_LIMBS}) half-limbs on {coords[0].device}, got "
+                         f"{tuple(k.shape)} on {k.device}")
+    if coords[0].device.type == "cpu":
+        return scalar_mul_plain(spec, coords, k)
+    L = spec.n_limbs
+    shape = coords[0].shape
+    flat = row_views("point scalar_mul", coords, L)
+    n = flat[0].shape[0]
+    if k.dtype != torch.int32:
+        raise ValueError(f"scalars: expected int32, got {k.dtype}")
+    kk = k.expand(shape[:-1] + (SCALAR_LIMBS,)).reshape(-1, SCALAR_LIMBS)
+    if kk.stride(-1) != 1:
+        kk = kk.contiguous()
+    outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    if n:
+        lib = load()
+        err = lib.tec_point_scalar_mul(
+            L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
+            (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), kk.data_ptr(), kk.stride(0),
+            (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), n, field_consts(spec), stream(),
+        )
+        check(lib, err, "point scalar_mul")
+        LAUNCHES.count += 1
+        CHAIN_LAUNCHES.count += 1
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def _stage_log_n(coords, tw: torch.Tensor, s: int) -> int:
+    n = coords[0].shape[-2] if coords[0].dim() >= 2 else 0
+    log_n = n.bit_length() - 1
+    if n < 2 or n != 1 << log_n:
+        raise ValueError(f"ec_fft_stage: the transform axis (-2) must be a power of two >= 2, got {n}")
+    if tuple(tw.shape) != (n // 2, SCALAR_LIMBS) or tw.device != coords[0].device:
+        raise ValueError(f"ec_fft_stage: twiddles must be ({n // 2}, {SCALAR_LIMBS}) on {coords[0].device}, "
+                         f"got {tuple(tw.shape)} on {tw.device}")
+    if not 0 <= s < log_n:
+        raise ValueError(f"ec_fft_stage: stage {s} outside [0, {log_n})")
+    return log_n
+
+
+def ec_fft_stage_plain(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
+    """Plain version of one EC-FFT stage (tpu_ec/ops/ec_fft.py:_ec_fft_impl):
+    along axis -2 of (..., n, L), a = rows [0, n/2), b = rows [n/2, n);
+    u = a + b, v = [tw_e](a - b) with e = (i >> s) << s (PointOps.add, sub
+    and :func:`scalar_mul_plain`); out[2i] = u, out[2i + 1] = v.  ``tw``:
+    the (n/2, 16) plain twiddle scalars."""
+    P = [c.to(torch.int64) for c in coords]
+    n = P[0].shape[-2]
+    h = n // 2
+    a = [c[..., :h, :] for c in P]
+    b = [c[..., h:, :] for c in P]
+    u = point_op_plain(spec, "add", [*a, *b])
+    d = point_op_plain(spec, "add", [*a, b[0], _neg_plain(spec, b[1]), b[2]])
+    e = (torch.arange(h, device=tw.device) >> s) << s
+    v = scalar_mul_plain(spec, d, tw[e])
+    return tuple(torch.stack([x, y], dim=-2).reshape(x.shape[:-2] + (n, x.shape[-1])).to(coords[0].dtype)
+                 for x, y in zip(u, v))
+
+
+def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
+    """Stage ``s`` of the EC-group FFT for every transform of a batch, in one
+    kernel launch (one thread a butterfly; bit-identical to
+    :func:`ec_fft_stage_plain`).  ``coords``: (X, Y, Z) of shape (..., n,
+    L), the transforms along axis -2; ``tw``: the (n/2, 16) plain twiddle
+    scalars w^j.  The outputs are new tensors, never the inputs.  CPU
+    tensors take the plain version; on CUDA everything is int32 and the
+    kernel runs on the current stream."""
+    log_n = _stage_log_n(coords, tw, s)
+    if coords[0].device.type == "cpu":
+        return ec_fft_stage_plain(spec, coords, tw, s)
+    L = spec.n_limbs
+    shape = coords[0].shape
+    flat = row_views("ec_fft_stage", coords, L)
+    if len({f.stride(0) for f in flat}) != 1:
+        flat = [f.contiguous() for f in flat]
+    check_cuda(tw, "twiddles", torch.int32)
+    outs = [torch.empty((flat[0].shape[0], L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    batches = flat[0].shape[0] >> log_n
+    if batches:
+        lib = load()
+        err = lib.tec_ec_fft_stage(
+            L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]), flat[0].stride(0),
+            (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), tw.data_ptr(), batches, log_n, s,
+            field_consts(spec), stream(),
+        )
+        check(lib, err, "ec_fft_stage")
+        LAUNCHES.count += 1
+        STAGE_LAUNCHES.count += 1
+    return tuple(o.reshape(shape) for o in outs)

@@ -7,7 +7,8 @@ through ``tpu_ec/__init__.py``; this loader compiles the same source with
 g++ into the port's build directory (``config.build_dir("native")``), its
 file name keyed by a hash of source and flags.  Only the surface the port
 needs is bound: field NTT, Montgomery product and conversion, half-limb
-conversion, scalar multiplication, batch to-affine and Pippenger MSM.
+conversion, scalar multiplication, batch to-affine, Pippenger MSM and the
+EC-group FFT.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ def _load():
         lib.ecn_ec_to_affine.argtypes = [vp, u64p, u64p, i64, i32]
         lib.ecn_ec_scalar_mul.argtypes = [vp, u64p, u64p, u64p, i64, i32]
         lib.ecn_msm.argtypes = [vp, u64p, u64p, i64, i32, i32, u64p]
+        lib.ecn_ec_fft.argtypes = [vp, u64p, i32, u64p, i32]
         _lib = lib
         return _lib
 
@@ -283,6 +285,26 @@ class NativeCurve:
         j = self.msm(self.affine_from_points(points), self.scalars_from_ints(scalars),
                      window, nthreads)
         return self.affine_to_points(self.to_affine(j[None, :]))[0]
+
+    def ec_fft(self, jac: np.ndarray, inverse: bool = False, nthreads: int = 0) -> np.ndarray:
+        """EC-group FFT (ec_fft_cpu.rs parity) of (n, 3w) Jacobian points,
+        n a power of two, natural order in and out; returns a new array.
+        The inverse scales by n^-1 through to_affine and scalar_mul, so its
+        Jacobian coordinates differ from the port's: compare affine."""
+        jac = np.array(_as_u64(jac, 3 * self.w).reshape(-1, 3 * self.w), copy=True)
+        n = jac.shape[0]
+        log_n = n.bit_length() - 1
+        if 1 << log_n != n:
+            raise ValueError("EC-FFT size must be a power of two")
+        fr = self.spec.scalar
+        omega = pow(fr.root_of_unity, 1 << (fr.two_adicity - log_n), fr.modulus)
+        if inverse:
+            omega = pow(omega, fr.modulus - 2, fr.modulus)
+        self.lib.ecn_ec_fft(self.handle, _ptr(jac), log_n, _ptr(int_to_u64(omega, 4)), nthreads)
+        if inverse:
+            ninv = self.scalars_from_ints([pow(n, -1, fr.modulus)])
+            jac = self.scalar_mul(self.to_affine(jac, nthreads), np.broadcast_to(ninv, (n, 4)), nthreads)
+        return jac
 
     def __del__(self):
         lib, h = getattr(self, "lib", None), getattr(self, "handle", None)
