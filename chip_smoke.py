@@ -67,10 +67,13 @@ Phases, each failing the run on any error:
    of 16 x 2^11 (``radix_ec_fft_many``) against 16 single calls; K3's chain
    entry at the path's launch (the BN254 2^11 inverse's scaling by n^-1,
    stride 0; also 1024 BLS12-381 points, random scalars) and EC-FFT stage
-   entry (stage 0 of the BN254 and of the BLS12-381 2^11 transform) against
-   their plain versions, with both bounds (the operations, and one chain's
-   serial latency from a one-point chain); the launches of a transform (one
-   stage entry a stage, one chain for the inverse's scaling); a
+   entry (stages 0, log2(32 / T) - 1, log2(32 / T) and 10 of the BN254 2^11
+   transform, T its tile of lanes, and stage 0 of the BLS12-381 one)
+   against their plain versions, with both bounds (the operations, and one
+   chain's serial latency from a one-point chain), the tile sizes, one
+   point op's latency and both transforms' stage times; the launches of a
+   transform (one stage entry a stage, one chain for the inverse's
+   scaling); a
    torch.profiler split of the BLS12-381 2^11 transform, traced in a fresh
    process (``--profile-ec-fft``), which must hold every stage launch;
    ``commit_coefficient_basis`` and ``commit_sparse`` (a seeded
@@ -335,8 +338,8 @@ class Kernels:
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
         "point_horner_batch": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "point_scalar_mul": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "ec_fft_stage": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point_scalar_mul": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "ec_fft_stage": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
@@ -345,6 +348,11 @@ class Kernels:
         "affine_denom": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:75"),
         "affine_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:107"),
     }
+
+    # ms of the one-thread chain kernels that the lane-tile ones replaced, at
+    # the same shapes (the BN254 2^11 inverse's chain; stage 0 of BN254
+    # 2^11), on an NVIDIA H100 80GB HBM3 at 700 W: reported as "was_ms"
+    WAS_MS = {"point_scalar_mul": 1.7243, "ec_fft_stage": 2.7765}
 
     def __init__(self, imad_rate: float):
         self.imad_rate = imad_rate
@@ -372,6 +380,7 @@ class Kernels:
                 "launches": self.launches[name], "max_abs_err": r["max_abs_err"],
                 "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                **({"was_ms": self.WAS_MS[name]} if name in self.WAS_MS else {}),
             })
         return json.dumps({"kernels": out})
 
@@ -455,8 +464,8 @@ def main() -> int:
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
     from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
-    from tpu_ec_torch.kernels.point import (ec_fft_stage, ec_fft_stage_plain, horner, horner_plain, point_op,
-                                            point_op_plain, point_scalar_mul, scalar_mul_plain)
+    from tpu_ec_torch.kernels.point import (chain_tile, ec_fft_stage, ec_fft_stage_plain, horner, horner_plain,
+                                            point_op, point_op_plain, point_scalar_mul, scalar_mul_plain)
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
     from tpu_ec_torch.ops.density import DensityTracker, compact_by_density
@@ -1149,12 +1158,16 @@ def main() -> int:
 
     def op_latency(spec, P):
         """Device ms of one point op in series: a one-point chain over 2^256 - 1
-        (255 doubles and 255 adds), one thread."""
+        (255 doubles and 255 adds), one tile of lanes."""
         ones = torch.full((1, 16), 0xFFFF, dtype=torch.int32, device=dev)
         return cuda_ms(lambda: point_scalar_mul(spec, [c[:1] for c in P], ones)) / 510
 
     L_bn = BN254_FQ.n_limbs
+    tile_bn, tile_fq = chain_tile(BN254_FQ), chain_tile(BLS12_381_FQ)
     lat_bn = op_latency(BN254_FQ, P_bn)
+    print(f"K3 chain entries (csrc/chain.cu): a field element on a tile of {tile_bn} lanes at 8 words, "
+          f"{tile_fq} at 12 words; one point op in series {lat_bn * 1e3:.3f} us at 8 words (a one-point chain "
+          f"over 2^256 - 1, 510 ops) | {card}", flush=True)
 
     # K3's chain entry at the path's own launch: the BN254 2^lg_ec inverse's
     # scaling, its bit-reversed stage output times one scalar n^-1 (row
@@ -1190,6 +1203,7 @@ def main() -> int:
     check("point_scalar_mul", f"K3 scalar_mul chain ({h_ec}, {L_fq}), random scalars, {ops_n} point ops",
           point_scalar_mul(BLS12_381_FQ, P1k, k1k), want, c_ms, p_ms)
     lat_fq = op_latency(BLS12_381_FQ, P1k)
+    print(f"K3 chain entries: one point op in series {lat_fq * 1e3:.3f} us at 12 words | {card}", flush=True)
     print(f"K3 scalar_mul chain ({h_ec}, {L_fq}): serial bound {longest * lat_fq:.4f} ms (the longest chain, "
           f"{longest} point ops x {lat_fq * 1e3:.2f} us, a one-point chain's), ms / serial "
           f"{c_ms / (longest * lat_fq):.2f} | {card}", flush=True)
@@ -1212,6 +1226,33 @@ def main() -> int:
           f"{lg_ec} such stages in series | {card}", flush=True)
     del want
 
+    # the BN254 transform's stages one by one (CUDA events); beside stage 0,
+    # the stages on both sides of log2(32 / T) (below it the tiles of a warp
+    # hold different scalars, from it on one) and the last held against
+    # their plain versions
+    uniform_bn = (32 // tile_bn).bit_length() - 1
+    held = sorted({uniform_bn - 1, uniform_bn, lg_ec - 1} & set(range(1, lg_ec)))
+    Y, stage_bn = tuple(P_bn), []
+    for st in range(lg_ec):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        Z = ec_fft_stage(BN254_FQ, Y, tw_bn, st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        stage_bn.append(ev[0].elapsed_time(ev[1]))
+        if st in held:
+            want, p_ms = cuda_ms_once(lambda: ec_fft_stage_plain(BN254_FQ, Y, tw_bn, st))
+            check("ec_fft_stage", f"K3 ec_fft_stage stage {st} ({n_ec}, {L_bn}), {h_ec} butterflies", Z, want,
+                  stage_bn[-1], p_ms)
+            del want
+        Y = Z
+    if not all(torch.equal(a.index_select(-2, kern_bn._domain_tensors(lg_ec, False)[2]), b)
+               for a, b in zip(Y, out_bn)):
+        raise SystemExit(f"EC-FFT BN254 2^{lg_ec}: its stages one by one disagree with the transform")
+    print(f"EC-FFT BN254 2^{lg_ec} stages 0..{lg_ec - 1}: {', '.join(f'{t:.3f}' for t in stage_bn)} ms "
+          f"(sum {sum(stage_bn):.3f}; s < {uniform_bn}: the tiles of a warp hold different scalars; stages "
+          f"{[0] + held} == plain) | {card}", flush=True)
+
     # the BLS12-381 transform's stages one by one (CUDA events), stage 0
     # held against its plain version, then its profile in a fresh process
     (tw_bls, _, rev_bls), Y, stage_ms = kern_bls._domain_tensors(lg_ec, False), tuple(P_bls), []
@@ -1231,7 +1272,8 @@ def main() -> int:
     if not all(torch.equal(a.index_select(-2, rev_bls), b) for a, b in zip(Y, kern_bls.radix_ec_fft(P_bls))):
         raise SystemExit(f"EC-FFT BLS12-381 2^{lg_ec}: its stages one by one disagree with the transform")
     print(f"EC-FFT BLS12-381 2^{lg_ec} stages 0..{lg_ec - 1}: {', '.join(f'{t:.3f}' for t in stage_ms)} ms "
-          f"(sum {sum(stage_ms):.3f}; s < 5: the lanes of a warp hold different scalars) | {card}", flush=True)
+          f"(sum {sum(stage_ms):.3f}; s < {(32 // tile_fq).bit_length() - 1}: the tiles of a warp hold different "
+          f"scalars) | {card}", flush=True)
     res = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-ec-fft", str(lg_ec)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode:

@@ -463,12 +463,14 @@ def _chain_rows(ops, cuda, n=64):
 
 @pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
 def test_scalar_mul_kernel_matches_plain(cuda, curve):
-    """K3's chain entry (one thread a point, the two shortcuts) == the plain
-    256-step loop, per-row scalars and one scalar for all rows (stride 0)."""
+    """K3's chain entry (one tile of lanes a point, at the tile size chain.cu
+    fixes for the curve's field; the two shortcuts) == the plain 256-step
+    loop, per-row scalars and one scalar for all rows (stride 0)."""
     from tpu_ec_torch import curves
-    from tpu_ec_torch.kernels.point import point_scalar_mul, scalar_mul_plain
+    from tpu_ec_torch.kernels.point import chain_tile, point_scalar_mul, scalar_mul_plain
 
     spec = getattr(curves, curve)
+    assert (spec.base.n_limbs // 2) % chain_tile(spec.base) == 0
     ops = PointOps(spec, cuda)
     P, k = _chain_rows(ops, cuda)
     got = point_scalar_mul(spec.base, P, k)
@@ -481,23 +483,26 @@ def test_scalar_mul_kernel_matches_plain(cuda, curve):
 @pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
 def test_ec_fft_stage_kernel_matches_plain(cuda, curve):
     """K3's EC-FFT stage entry == its plain version at every stage of two
-    transforms of 8 points, with a == b, a == -b and identity rows."""
+    transforms of 64 points, with a == b, a == -b and identity rows: the
+    stages below log2(32 / T) put tiles of different scalars in one warp,
+    the others one scalar a warp."""
     from tpu_ec_torch import curves
-    from tpu_ec_torch.kernels.point import ec_fft_stage, ec_fft_stage_plain
+    from tpu_ec_torch.kernels.point import chain_tile, ec_fft_stage, ec_fft_stage_plain
     from tpu_ec_torch.ops.ec_fft import get_ec_domain
 
     spec = getattr(curves, curve)
+    assert 32 // chain_tile(spec.base) < 64  # both kinds of stage occur
     ops = PointOps(spec, cuda)
-    _, P = _points(ops, 16)
-    Y = [c.reshape(2, 8, -1).clone() for c in P]
+    _, P = _points(ops, 128)
+    Y = [c.reshape(2, 64, -1).clone() for c in P]
     negy = ops.F.neg(Y[1][1, 1:2])[0]
     for c in Y:
-        c[0, 4] = c[0, 0]  # a == b
-        c[1, 5] = c[1, 1]
+        c[0, 32] = c[0, 0]  # a == b
+        c[1, 33] = c[1, 1]
         c[1, 2] = 0  # identity
-    Y[1][1, 5] = negy  # a == -b
-    tw = torch.as_tensor(get_ec_domain(spec, 3).twiddle_scalars.astype(np.int64)).to(cuda, torch.int32)
-    for s in range(3):
+    Y[1][1, 33] = negy  # a == -b
+    tw = torch.as_tensor(get_ec_domain(spec, 6).twiddle_scalars.astype(np.int64)).to(cuda, torch.int32)
+    for s in range(6):
         got, want = ec_fft_stage(spec.base, Y, tw, s), ec_fft_stage_plain(spec.base, Y, tw, s)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), s
         Y = list(want)

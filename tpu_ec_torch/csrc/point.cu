@@ -9,12 +9,9 @@
 // (w doublings and one add a window, top window first) in one launch with
 // the same device functions, and for a batch of MSMs
 // tpu_ec/ops/msm_batch.py:horner_combine_batch, one thread a chunk in the
-// same launch.  The chain entry runs PointOps.scalar_mul
-// (tpu_ec/curves/point.py:334-351, 256 MSB-first double-and-add steps), one
-// thread a point; the EC-FFT stage entry runs one Pease stage of
-// tpu_ec/ops/ec_fft.py:_ec_fft_impl (u = a + b, v = [w^e](a - b)), one
-// thread a butterfly, with the same chain.  Every stored value is
-// canonical, so the Jacobian outputs are bit-identical to tpu_ec's
+// same launch.  (K3's chain entries, the scalar multiplication and the
+// EC-FFT stage, are chain.cu, on the lane-tile field core.)  Every stored
+// value is canonical, so the Jacobian outputs are bit-identical to tpu_ec's
 // PointOps, not merely the same point.
 //
 // Bound on the H100: integer-ALU.  An add is 16 field products (11 for the
@@ -46,9 +43,6 @@ constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
 // Horner: one warp a block, so 1024 chunks take 32 SMs
 constexpr int kHornerThreads = 32;
-// the chain entries: one warp a block, as the Horner's (a chain is serial)
-constexpr int kChainThreads = 32;
-constexpr int kScalarWords = 8;  // Fr of both curves: 256-bit plain scalars, 16 half-limbs
 
 struct PointArgs {
   const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
@@ -88,17 +82,6 @@ struct RegPoint {
   __device__ __forceinline__ Fe<NW> X() const { return x; }
   __device__ __forceinline__ Fe<NW> Y() const { return y; }
   __device__ __forceinline__ Fe<NW> Z(const FieldConsts&) const { return z; }
-};
-
-// -Q of a point operand read from device memory (PointOps.sub's neg):
-// y -> p - y, 0 -> 0.
-template <int NW>
-struct NegMemPoint {
-  MemPoint<NW> q;
-  const FieldConsts& fc;
-  __device__ __forceinline__ Fe<NW> X() const { return q.X(); }
-  __device__ __forceinline__ Fe<NW> Y() const { return tec::fe_sub<NW>(tec::fe_zero<NW>(), q.Y(), fc); }
-  __device__ __forceinline__ Fe<NW> Z(const FieldConsts& c) const { return q.Z(c); }
 };
 
 // Where an op's result goes, one coordinate at a time as soon as it is
@@ -282,99 +265,6 @@ __global__ void horner_kernel(const __grid_constant__ PointArgs args, int window
   out.X(res.x); out.Y(res.y); out.Z(res.z);
 }
 
-// Bit b of a 256-bit scalar held in registers (a select over the words, so
-// that k stays in registers under a run-time b).
-__device__ __forceinline__ uint32_t scalar_bit(const Fe<kScalarWords>& k, int b) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int i = 0; i < kScalarWords; ++i) w = (b >> 5) == i ? k.w[i] : w;
-  return (w >> (b & 31)) & 1u;
-}
-
-// acc = [k] P, MSB first from the identity: acc = 2 acc, then acc = acc + P
-// where the bit is set (PointOps.add, falling back to 2 acc where acc == P).
-// Two shortcuts leave every coordinate as tpu_ec's 256 steps give it: the
-// steps above k's top set bit are skipped (the double of (0, 0, 0) is
-// (0, 0, 0), and (0, 0, 0) + P is P itself), and so are the adds of the zero
-// bits (tpu_ec selects acc there).  One call site of dbl serves both the
-// step's doubling and the rare acc == P fallback, so the loop holds one
-// inlined dbl and one add.  P is read from memory at each use (MemPoint).
-template <int NW, class SP>
-__device__ __forceinline__ void scalar_chain(const SP& P, const Fe<kScalarWords>& k, RegPoint<NW>& acc,
-                                             const FieldConsts& fc) {
-  using namespace tec;
-  int top = -1;
-#pragma unroll
-  for (int i = 0; i < kScalarWords; ++i)
-    if (k.w[i]) top = 32 * i + 31 - __clz(k.w[i]);
-  if (top < 0) {
-    acc = RegPoint<NW>{fe_zero<NW>(), fe_zero<NW>(), fe_zero<NW>()};
-    return;
-  }
-  acc = RegPoint<NW>{P.X(), P.Y(), P.Z(fc)};
-  RegPoint<NW> t;
-  const RegOut<NW> to{t};
-  bool same = false;  // the last add found acc == P: this doubling is its result
-#pragma unroll 1
-  for (int b = top - 1; b >= 0;) {
-    dbl<NW>(acc.x, acc.y, acc.z, to, fc);
-    acc = t;
-    if (same) {
-      same = false;
-      --b;
-      continue;
-    }
-    if (scalar_bit(k, b)) {
-      if (!add_core<NW>(acc, P, to, fc)) {
-        same = true;
-        continue;
-      }
-      acc = t;
-    }
-    --b;
-  }
-}
-
-// One thread a point i: out_i = [k_i] P_i.  P: in[0..2] with row strides,
-// k: 16 half-limbs a row with row stride k_stride (0: one scalar for all).
-template <int NW>
-__global__ void __launch_bounds__(kChainThreads)
-    scalar_mul_kernel(const __grid_constant__ PointArgs args, const int32_t* k, long long k_stride,
-                      const __grid_constant__ FieldConsts fc) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= args.n) return;
-  RegPoint<NW> acc;
-  scalar_chain<NW>(MemPoint<NW>{args, 0, i}, tec::load_fe<kScalarWords>(k + i * k_stride), acc, fc);
-  const MemOut<NW> out{args, i};
-  out.X(acc.x); out.Y(acc.y); out.Z(acc.z);
-}
-
-// One Pease stage s over a batch of transforms of 2 * half points each
-// (tpu_ec/ops/ec_fft.py:_ec_fft_impl): butterfly g = t * half + i (args.n =
-// batches * half of them, consecutive in a warp, so for s >= 5 a warp shares
-// one scalar) reads a = row t * 2half + i and b = row t * 2half + half + i of
-// in[0..2], writes u = a + b to output row t * 2half + 2i and v = [tw_e](a -
-// b), e = (i >> s) << s, to the next row.  in[3..5] are the outputs again:
-// the chain reads a - b back from v's row, where it is stored first.
-template <int NW>
-__global__ void __launch_bounds__(kChainThreads)
-    ec_fft_stage_kernel(const __grid_constant__ PointArgs args, const int32_t* tw, long long half, int s,
-                        const __grid_constant__ FieldConsts fc) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= args.n) return;
-  const long long t = g / half, i = g - t * half;
-  const long long ia = 2 * t * half + i, ib = ia + half, ou = 2 * t * half + 2 * i, ov = ou + 1;
-  const MemPoint<NW> A{args, 0, ia};
-  if (!add_core<NW>(A, MemPoint<NW>{args, 0, ib}, MemOut<NW>{args, ou}, fc)) double_to<NW>(&args, 0, ia, ou, &fc);
-  if (!add_core<NW>(A, NegMemPoint<NW>{MemPoint<NW>{args, 0, ib}, fc}, MemOut<NW>{args, ov}, fc))
-    double_to<NW>(&args, 0, ia, ov, &fc);
-  RegPoint<NW> acc;
-  scalar_chain<NW>(MemPoint<NW>{args, 3, ov}, tec::load_fe<kScalarWords>(tw + ((i >> s) << s) * 2 * kScalarWords),
-                   acc, fc);
-  const MemOut<NW> out{args, ov};
-  out.X(acc.x); out.Y(acc.y); out.Z(acc.z);
-}
-
 template <int NW>
 int launch(int op, const PointArgs& a, const FieldConsts& fc, cudaStream_t s) {
   const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
@@ -440,59 +330,6 @@ extern "C" int tec_point_horner(int nw, const void* const* in, const long long* 
     horner_kernel<8><<<blocks, threads, 0, s>>>(a, windows, w, c);
   } else if (nw == 12) {
     horner_kernel<12><<<blocks, threads, 0, s>>>(a, windows, w, c);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// [k_i] P_i for n points: in = 3 device pointers of (n, 2*nw) int32
-// coordinates with row strides (0: one point for all), k = (n, 16) int32
-// plain half-limbs with row stride k_stride (0: one scalar for all), out = 3
-// device pointers of (n, 2*nw) contiguous int32, not overlapping the inputs.
-// One thread a point, kChainThreads a block.
-extern "C" int tec_point_scalar_mul(int nw, const void* const* in, const long long* in_stride, const void* k,
-                                    long long k_stride, void* const* out, long long n, const uint32_t* fc,
-                                    void* stream) {
-  if (n <= 0) return 0;
-  const PointArgs a = make_args(3, in, in_stride, out, 2 * nw, n);
-  const FieldConsts c = tec::field_consts_from_host(fc);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int threads = n < kChainThreads ? (int)n : kChainThreads;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  if (nw == 8) {
-    scalar_mul_kernel<8><<<blocks, threads, 0, s>>>(a, (const int32_t*)k, k_stride, c);
-  } else if (nw == 12) {
-    scalar_mul_kernel<12><<<blocks, threads, 0, s>>>(a, (const int32_t*)k, k_stride, c);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// Stage s of `batches` EC-FFTs of 2^log_n points side by side: in = 3 device
-// pointers of (batches * 2^log_n, 2*nw) int32 coordinates with row stride
-// in_stride, transform t at rows [t 2^log_n, (t + 1) 2^log_n); out = 3 device
-// pointers of the same shape, contiguous, not overlapping the inputs; tw =
-// the (2^(log_n - 1), 16) contiguous int32 plain twiddle scalars w^j.  One
-// thread a butterfly, kChainThreads a block.
-extern "C" int tec_ec_fft_stage(int nw, const void* const* in, long long in_stride, void* const* out,
-                                const void* tw, long long batches, int log_n, int stage, const uint32_t* fc,
-                                void* stream) {
-  if (log_n < 1 || stage < 0 || stage >= log_n || batches < 0) return (int)cudaErrorInvalidValue;
-  const long long half = 1LL << (log_n - 1), n = batches * half;
-  if (n == 0) return 0;
-  const void* ins[6] = {in[0], in[1], in[2], out[0], out[1], out[2]};
-  const long long strides[6] = {in_stride, in_stride, in_stride, 2LL * nw, 2LL * nw, 2LL * nw};
-  const PointArgs a = make_args(6, ins, strides, out, 2 * nw, n);
-  const FieldConsts c = tec::field_consts_from_host(fc);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int threads = n < kChainThreads ? (int)n : kChainThreads;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  if (nw == 8) {
-    ec_fft_stage_kernel<8><<<blocks, threads, 0, s>>>(a, (const int32_t*)tw, half, stage, c);
-  } else if (nw == 12) {
-    ec_fft_stage_kernel<12><<<blocks, threads, 0, s>>>(a, (const int32_t*)tw, half, stage, c);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -6,9 +6,11 @@ launch each: the MSM's Horner window combine
 (``tpu_ec/ops/msm_pair.py::horner_combine``, and for a batch of MSMs
 ``tpu_ec/ops/msm_batch.py::horner_combine_batch``), the scalar
 multiplication chain of ``tpu_ec/curves/point.py::PointOps.scalar_mul``
-(one thread a point) and one stage of the EC-group FFT
-(``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one thread a butterfly).  The
-kernel is ``csrc/point.cu``.  The plain version below evaluates the same
+(one tile of lanes a point) and one stage of the EC-group FFT
+(``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile a butterfly).  The
+kernels are ``csrc/point.cu`` and, for the last two, ``csrc/chain.cu``,
+whose lanes split each field product (``csrc/field_tile.cuh``).  The plain
+version below evaluates the same
 formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
 computes the doubling branch only on the rows that select it), so both are
 bit-identical to ``tpu_ec``'s PointOps.
@@ -334,8 +336,8 @@ def scalar_mul_plain(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
 
 
 def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
-    """[k] P for a batch of Jacobian points, in one kernel launch (one
-    thread a point runs the whole chain; bit-identical to
+    """[k] P for a batch of Jacobian points, in one kernel launch (one tile
+    of lanes a point runs the whole chain; bit-identical to
     :func:`scalar_mul_plain`).  ``coords``: P's (X, Y, Z), (..., L); ``k``:
     (..., 16) plain (non-Montgomery) scalar limbs that broadcast against P's
     batch (a single scalar goes to the kernel with row stride 0).  CPU
@@ -367,6 +369,13 @@ def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
         LAUNCHES.count += 1
         CHAIN_LAUNCHES.count += 1
     return tuple(o.reshape(shape) for o in outs)
+
+
+def chain_tile(spec: FieldSpec) -> int:
+    """The lanes that hold one element of ``spec`` in the chain entries
+    (:func:`point_scalar_mul`, :func:`ec_fft_stage`), fixed in
+    ``csrc/chain.cu``; builds the kernels on first call."""
+    return load().tec_chain_tile(spec.n_limbs // 2)
 
 
 def _stage_log_n(coords, tw: torch.Tensor, s: int) -> int:
@@ -403,7 +412,7 @@ def ec_fft_stage_plain(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tup
 
 def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
     """Stage ``s`` of the EC-group FFT for every transform of a batch, in one
-    kernel launch (one thread a butterfly; bit-identical to
+    kernel launch (one tile of lanes a butterfly; bit-identical to
     :func:`ec_fft_stage_plain`).  ``coords``: (X, Y, Z) of shape (..., n,
     L), the transforms along axis -2; ``tw``: the (n/2, 16) plain twiddle
     scalars w^j.  The outputs are new tensors, never the inputs.  CPU
