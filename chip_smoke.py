@@ -349,11 +349,6 @@ class Kernels:
         "affine_apply": ("csrc/affine.cu", "tpu_ec/ops/pallas/affine.py:107"),
     }
 
-    # ms of the one-thread chain kernels that the lane-tile ones replaced, at
-    # the same shapes (the BN254 2^11 inverse's chain; stage 0 of BN254
-    # 2^11), on an NVIDIA H100 80GB HBM3 at 700 W: reported as "was_ms"
-    WAS_MS = {"point_scalar_mul": 1.7243, "ec_fft_stage": 2.7765}
-
     def __init__(self, imad_rate: float):
         self.imad_rate = imad_rate
         self.rows: dict[str, dict] = {}
@@ -380,7 +375,6 @@ class Kernels:
                 "launches": self.launches[name], "max_abs_err": r["max_abs_err"],
                 "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-                **({"was_ms": self.WAS_MS[name]} if name in self.WAS_MS else {}),
             })
         return json.dumps({"kernels": out})
 

@@ -17,7 +17,7 @@
 // card's IMAD rate would run a 2^11 stage's 1024 chains in ~0.06 ms, but a
 // chain takes its ops' product latencies in series.
 //
-// Design.  A tile of kTile<NW> lanes runs each chain.  The formulas are
+// Design.  A tile of kTile lanes runs each chain.  The formulas are
 // written in levels of independent products (3 a doubling, 5 an add), and
 // the lanes compute a level's products side by side, each with field.cuh's
 // one-thread product (field_tile.cuh TileProducts), so an op's critical
@@ -29,38 +29,21 @@
 // blocks of one warp spread a 2^11 stage over the SMs.  The rare P == Q
 // doubling of the adds runs in a separate non-inlined function that reads P
 // again.
-#include <type_traits>
-
 #include "field_tile.cuh"
-
-// The lanes of a chain, per word count, fixed here, and the design: both chosen
-// on the H100 with tpu_ec_torch/utils/tile_sweep.py, which builds this file
-// with other values (and TEC_CHAIN_SPLIT_WORDS 1: the words of each product
-// split across the tile, field_tile.cuh TileField, for the sweep alone).
-#ifndef TEC_CHAIN_TILE_8
-#define TEC_CHAIN_TILE_8 4
-#endif
-#ifndef TEC_CHAIN_TILE_12
-#define TEC_CHAIN_TILE_12 4
-#endif
-#ifndef TEC_CHAIN_SPLIT_WORDS
-#define TEC_CHAIN_SPLIT_WORDS 0
-#endif
 
 namespace {
 
 using tec::Fe;
 using tec::FieldConsts;
 
-template <int NW>
-constexpr int kTile = NW == 8 ? TEC_CHAIN_TILE_8 : TEC_CHAIN_TILE_12;
-
+// The lanes of a chain, for both word counts: the add's widest levels hold
+// 4 products, and 4 lanes ran fastest of the sizes timed (PERF.md).
+constexpr int kTile = 4;
 constexpr int kChainThreads = 32;  // one warp a block: a chain is serial, so spread them over the SMs
 constexpr int kScalarWords = 8;    // Fr of both curves: 256-bit plain scalars, 16 half-limbs
 
 template <int NW>
-using Field = std::conditional_t<TEC_CHAIN_SPLIT_WORDS != 0, tec::TileField<NW, kTile<NW>>,
-                                 tec::TileProducts<NW, kTile<NW>>>;
+using Field = tec::TileProducts<NW, kTile>;
 
 struct ChainArgs {
   const int32_t* in[6];  // X Y Z of P (the stage: of the input, then of its output again)
@@ -199,7 +182,7 @@ __device__ __forceinline__ bool add_core(const Field<NW>& f, const SP& P, const 
 // code.  Row i of coordinates k.. is read again; the result goes to row o.
 template <int NW>
 __device__ __noinline__ void double_to(const ChainArgs* a, int k, long long i, long long o, const FieldConsts* fc) {
-  const Field<NW> f(tec::Tile<kTile<NW>>::make(), *fc);
+  const Field<NW> f(*fc);
   const MemPoint<NW> P{*a, f, k, i};
   dbl<NW>(f, P.X(), P.Y(), P.Z(), MemOut<NW>{*a, f, o});
 }
@@ -262,9 +245,9 @@ template <int NW>
 __global__ void __launch_bounds__(kChainThreads)
     scalar_mul_kernel(const __grid_constant__ ChainArgs args, const int32_t* k, long long k_stride,
                       const __grid_constant__ FieldConsts fc) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile<NW>;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
   if (i >= args.n) return;  // the whole tile
-  const Field<NW> f(tec::Tile<kTile<NW>>::make(), fc);
+  const Field<NW> f(fc);
   RegPoint<NW> acc;
   scalar_chain<NW>(f, MemPoint<NW>{args, f, 0, i}, tec::load_fe<kScalarWords>(k + i * k_stride), acc);
   const MemOut<NW> out{args, f, i};
@@ -282,9 +265,9 @@ template <int NW>
 __global__ void __launch_bounds__(kChainThreads)
     ec_fft_stage_kernel(const __grid_constant__ ChainArgs args, const int32_t* tw, long long half, int s,
                         const __grid_constant__ FieldConsts fc) {
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile<NW>;
+  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
   if (g >= args.n) return;  // the whole tile
-  const Field<NW> f(tec::Tile<kTile<NW>>::make(), fc);
+  const Field<NW> f(fc);
   const long long t = g / half, i = g - t * half;
   const long long ia = 2 * t * half + i, ib = ia + half, ou = 2 * t * half + 2 * i, ov = ou + 1;
   const MemPoint<NW> A{args, f, 0, ia};
@@ -312,10 +295,9 @@ ChainArgs make_args(const void* const* in, const long long* in_stride, int n_in,
   return a;
 }
 
-// Threads and blocks for n tiles of T lanes, kChainThreads a block.
-template <int NW>
+// Threads and blocks for n tiles of kTile lanes, kChainThreads a block.
 void geometry(long long n, unsigned& blocks, int& threads) {
-  const long long lanes = n * kTile<NW>;
+  const long long lanes = n * kTile;
   threads = lanes < kChainThreads ? (int)lanes : kChainThreads;
   blocks = (unsigned)((lanes + threads - 1) / threads);
 }
@@ -325,7 +307,7 @@ int launch_scalar_mul(const ChainArgs& a, const int32_t* k, long long k_stride, 
                       cudaStream_t s) {
   unsigned blocks;
   int threads;
-  geometry<NW>(a.n, blocks, threads);
+  geometry(a.n, blocks, threads);
   scalar_mul_kernel<NW><<<blocks, threads, 0, s>>>(a, k, k_stride, c);
   return (int)cudaGetLastError();
 }
@@ -335,7 +317,7 @@ int launch_stage(const ChainArgs& a, const int32_t* tw, long long half, int stag
                  cudaStream_t s) {
   unsigned blocks;
   int threads;
-  geometry<NW>(a.n, blocks, threads);
+  geometry(a.n, blocks, threads);
   ec_fft_stage_kernel<NW><<<blocks, threads, 0, s>>>(a, tw, half, stage, c);
   return (int)cudaGetLastError();
 }
@@ -383,7 +365,5 @@ extern "C" int tec_ec_fft_stage(int nw, const void* const* in, long long in_stri
 
 // The lanes a field element of nw words takes in the two kernels above.
 extern "C" int tec_chain_tile(int nw) {
-  if (nw == 8) return kTile<8>;
-  if (nw == 12) return kTile<12>;
-  return 0;
+  return nw == 8 || nw == 12 ? kTile : 0;
 }

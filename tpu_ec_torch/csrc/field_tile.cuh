@@ -1,47 +1,22 @@
 // Montgomery field arithmetic for a tile of T lanes that runs one chain of
-// point ops (K3's chain entries, chain.cu), in two designs with one
-// interface.
+// point ops (K3's chain entries, chain.cu).
 //
-// Both compute what field.cuh's lazy and canonical functions compute, value
-// for value (mul / sqr: the unreduced (ab + Mp)/R; add, sub, dbl in
-// [0, 2p); canon; neg; is_zero), so any sequence of them is bit-identical to
-// the same sequence of field.cuh calls, and so to tpu_ec's FieldOps;
-// field.cuh's one-thread functions stay as they are for K1, K2, K4-K7 and
-// K3's point and Horner kernels.  mul_many takes a level of independent
-// products, so a caller written in levels runs on either design.
+// It computes what field.cuh's lazy and canonical functions compute, value
+// for value (mul: the unreduced (ab + Mp)/R; add, sub, dbl in [0, 2p);
+// canon; neg; is_zero), so any sequence of them is bit-identical to the
+// same sequence of field.cuh calls, and so to tpu_ec's FieldOps; field.cuh's
+// one-thread functions stay as they are for K1, K2, K4-K7 and K3's point
+// and Horner kernels.
 //
-// TileProducts<NW, T> (the kernels' design) splits the products of a level
-// across the lanes: lane k computes product k with field.cuh's one-thread
+// mul_many takes a level of independent products and splits them across
+// the lanes: lane k computes product k with field.cuh's one-thread
 // even/odd product, and every lane receives every result (NW shuffles a
 // product, independent of each other).  Every lane holds whole elements
 // and runs the adds and subtracts itself, so the lanes hold equal values
 // and take equal branches.  A point formula's critical path falls from its
 // count of products (7 a doubling, 16 an add) to its count of levels (3,
-// 5).
-//
-// TileField<NW, T> (measured, not shipped: tpu_ec_torch/utils/tile_sweep.py
-// builds it) splits the words of each product instead: lane j owns words
-// [jW, (j+1)W), W = NW / T, of every element, as an Fe<W>, and keeps its
-// own words of p and 2p in registers.
-//
-// Its product is a lane-split CIOS (the "threads per instance" layout of
-// NVIDIA's CGBN).  In step i every lane receives a's word i from the lane
-// that owns it (one shuffle, off the critical path) and adds a_i * b to its
-// W words of the accumulator; lane 0's low word, broadcast (one shuffle),
-// gives m = t_0 * n'; every lane adds m * p to its words and shifts them down
-// one word, its lowest word going to the top of the lane below (one
-// shuffle).  A lane's carry out is not passed on at once: it stays in two
-// words above the lane's own and is added where the shift brings the next
-// lane's word down, so between steps it is at most 3.  After NW steps each
-// lane adds the carry word of the lane below, and the carries that leaves
-// are resolved in one generate/propagate vote over the tile.  The result is
-// (ab + Mp)/R with the M of every exact REDC (M = -ab p^-1 mod R is unique
-// in [0, R)), so it equals field.cuh's mul_eo bit for bit.
-//
-// Every branch of TileField, and of its callers, depends only on values
-// voted over the tile (carries, borrows, zero tests), so the lanes of a tile
-// never take different paths.  Tiles of one warp may, in both designs:
-// every shuffle and vote names the tile's lanes only.
+// 5).  Tiles of one warp may take different branches: every shuffle names
+// the tile's lanes only.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -52,268 +27,25 @@ namespace tec {
 
 namespace cg = cooperative_groups;
 
-// The lanes of one tile and the collectives the field ops use.
-template <int T>
-struct Tile {
-  cg::thread_block_tile<T> g;
-  static __device__ __forceinline__ Tile make() { return Tile{cg::tiled_partition<T>(cg::this_thread_block())}; }
-  __device__ __forceinline__ int rank() const { return (int)g.thread_rank(); }
-  __device__ __forceinline__ uint32_t bcast(uint32_t v, int src) const { return g.shfl(v, src); }
-  // v of the lane above; 0 in the top lane
-  __device__ __forceinline__ uint32_t from_above(uint32_t v) const {
-    const uint32_t x = g.shfl_down(v, 1);
-    return rank() == T - 1 ? 0u : x;
-  }
-  // v of the lane below; 0 in lane 0
-  __device__ __forceinline__ uint32_t from_below(uint32_t v) const {
-    const uint32_t x = g.shfl_up(v, 1);
-    return rank() == 0 ? 0u : x;
-  }
-  __device__ __forceinline__ uint32_t ballot(bool p) const { return g.ballot(p); }
-  __device__ __forceinline__ bool any(bool p) const { return g.any(p); }
-};
-
-// One thread: every collective is the identity.
-template <>
-struct Tile<1> {
-  static __device__ __forceinline__ Tile make() { return Tile{}; }
-  __device__ __forceinline__ int rank() const { return 0; }
-  __device__ __forceinline__ uint32_t bcast(uint32_t v, int) const { return v; }
-  __device__ __forceinline__ uint32_t from_above(uint32_t) const { return 0; }
-  __device__ __forceinline__ uint32_t from_below(uint32_t) const { return 0; }
-  __device__ __forceinline__ uint32_t ballot(bool p) const { return p ? 1u : 0u; }
-  __device__ __forceinline__ bool any(bool p) const { return p; }
-};
-
-template <int NW, int T>
-struct TileField {
-  static_assert(NW % T == 0, "the tile size must divide the word count");
-  static constexpr int W = NW / T;
-  using E = Fe<W>;  // this lane's words of an element
-
-  Tile<T> tile;
-  uint32_t np;
-  uint32_t p[W], p2[W];  // this lane's words of p and 2p
-
-  __device__ __forceinline__ TileField(const Tile<T>& t, const FieldConsts& fc) : tile(t), np(fc.np) {
-    const int base = t.rank() * W;
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      p[k] = fc.p[base + k];
-      p2[k] = fc.p2[base + k];
-    }
-  }
-
-  // ---- words across the tile ----
-
-  static __device__ __forceinline__ bool all_ones(const E& a) {
-    uint32_t x = 0xFFFFFFFFu;
-#pragma unroll
-    for (int k = 0; k < W; ++k) x &= a.w[k];
-    return x == 0xFFFFFFFFu;
-  }
-
-  static __device__ __forceinline__ bool all_zero(const E& a) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int k = 0; k < W; ++k) x |= a.w[k];
-    return x == 0;
-  }
-
-  // The carry (or borrow) into this lane, from each lane's own carry out
-  // `gen` and whether its words pass an incoming one on (`prop`; never
-  // both).  c_j = g_{j-1} | (p_{j-1} & c_{j-1}) for every j at once: the
-  // carries into the bits of P of the sum (G << 1) + P are those c_j that P
-  // passes on.  `out` gets the carry out of the top lane.
-  __device__ __forceinline__ uint32_t resolve(uint32_t gen, bool prop, uint32_t& out) const {
-    if constexpr (T == 1) {
-      out = gen;
-      return 0;
-    } else {
-      const uint32_t G = tile.ballot(gen != 0), P = tile.ballot(prop);
-      const uint32_t C = ((G << 1) + P) ^ P;
-      out = (C >> T) & 1u;
-      return (C >> tile.rank()) & 1u;
-    }
-  }
-
-  // r += c, the carry out of the lane dropped (the caller has counted it).
-  static __device__ __forceinline__ void add_in(E& r, uint32_t c) {
-    if constexpr (W == 1) {
-      r.w[0] += c;
-    } else {
-      add_cc(r.w[0], r.w[0], c);
-#pragma unroll
-      for (int k = 1; k < W - 1; ++k) addc_cc(r.w[k], r.w[k], 0);
-      addc(r.w[W - 1], r.w[W - 1], 0);
-    }
-  }
-
-  static __device__ __forceinline__ void sub_in(E& r, uint32_t c) {
-    if constexpr (W == 1) {
-      r.w[0] -= c;
-    } else {
-      sub_cc(r.w[0], r.w[0], c);
-#pragma unroll
-      for (int k = 1; k < W - 1; ++k) subc_cc(r.w[k], r.w[k], 0);
-      subc(r.w[W - 1], r.w[W - 1], 0);
-    }
-  }
-
-  // r = a + b over the element; returns the carry out of its top word.
-  __device__ __forceinline__ uint32_t add_words_t(E& r, const E& a, const uint32_t* b) const {
-    const uint32_t c = add_words<W>(r, a, b);
-    uint32_t out;
-    add_in(r, resolve(c, all_ones(r), out));
-    return out;
-  }
-
-  // r = a - b over the element; returns the borrow out of its top word.
-  __device__ __forceinline__ uint32_t sub_words_t(E& r, const E& a, const uint32_t* b) const {
-    const uint32_t c = sub_words<W>(r, a, b);
-    uint32_t out;
-    sub_in(r, resolve(c, all_zero(r), out));
-    return out;
-  }
-
-  // t (with an optional top word) minus m where that does not go negative.
-  __device__ __forceinline__ E cond_sub(const E& t, uint32_t top, const uint32_t* m) const {
-    E d;
-    const uint32_t borrow = sub_words_t(d, t, m);
-    return (top != 0 || borrow == 0) ? d : t;
-  }
-
-  // a - b, plus m where that borrows.
-  __device__ __forceinline__ E sub_mod(const E& a, const E& b, const uint32_t* m) const {
-    E d;
-    if (sub_words_t(d, a, b.w)) {
-      E w;
-      add_words_t(w, d, m);
-      return w;
-    }
-    return d;
-  }
-
-  // ---- the field ops (lazy: [0, 2p) -> [0, 2p), as field.cuh's *_lazy) ----
-
-  // (a*b + M*p) / R before its final subtract: the lane-split CIOS.
-  __device__ __forceinline__ E mul(const E& a, const E& b) const {
-    uint32_t t[W + 2];
-#pragma unroll
-    for (int k = 0; k < W + 2; ++k) t[k] = 0;
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      mac_row<W>(t, tile.bcast(a.w[i % W], i / W), b.w);
-      const uint32_t m = tile.bcast(t[0], 0) * np;
-      mac_row<W>(t, m, p);
-      const uint32_t x = tile.from_above(t[0]);
-#pragma unroll
-      for (int k = 0; k < W - 1; ++k) t[k] = t[k + 1];
-      add_cc(t[W - 1], x, t[W]);
-      addc(t[W], t[W + 1], 0);
-      t[W + 1] = 0;
-    }
-    const uint32_t c = tile.from_below(t[W]);
-    E u;
-    uint32_t gen;
-    add_cc(u.w[0], t[0], c);
-#pragma unroll
-    for (int k = 1; k < W; ++k) addc_cc(u.w[k], t[k], 0);
-    addc(gen, 0, 0);
-    uint32_t out;  // 0: the value is below 2p < R
-    add_in(u, resolve(gen, all_ones(u), out));
-    return u;
-  }
-
-  __device__ __forceinline__ E sqr(const E& a) const { return mul(a, a); }
-
-  // r_k = a_k * b_k, one product after the other.
-  template <int N>
-  __device__ __forceinline__ void mul_many(E (&r)[N], const E (&a)[N], const E (&b)[N]) const {
-#pragma unroll
-    for (int k = 0; k < N; ++k) r[k] = mul(a[k], b[k]);
-  }
-
-  // a + b < 4p < R, so nothing carries out; minus 2p where that fits.
-  __device__ __forceinline__ E add(const E& a, const E& b) const {
-    E s;
-    add_words_t(s, a, b.w);
-    return cond_sub(s, 0, p2);
-  }
-
-  __device__ __forceinline__ E sub(const E& a, const E& b) const { return sub_mod(a, b, p2); }
-
-  __device__ __forceinline__ E dbl(const E& a) const { return add(a, a); }
-
-  // [0, 2p) -> the canonical value.
-  __device__ __forceinline__ E canon(const E& a) const { return cond_sub(a, 0, p); }
-
-  // -a mod p of a canonical a (FieldOps.neg: 0 stays 0), canonical.
-  __device__ __forceinline__ E neg(const E& a) const { return sub_mod(zero(), a, p); }
-
-  static __device__ __forceinline__ E zero() {
-    E r;
-#pragma unroll
-    for (int k = 0; k < W; ++k) r.w[k] = 0;
-    return r;
-  }
-
-  // A vote over the tile: the same in every lane.
-  __device__ __forceinline__ bool is_zero(const E& a) const { return !tile.any(!all_zero(a)); }
-
-  // ---- this lane's words of the half-limb layout (2*NW int32, each < 2^16) ----
-
-  __device__ __forceinline__ E load(const int32_t* row) const {
-    const int32_t* s = row + 2 * W * tile.rank();
-    E r;
-    if ((reinterpret_cast<uintptr_t>(s) & 7) == 0) {
-      const int2* v = reinterpret_cast<const int2*>(s);
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const int2 q = v[k];
-        r.w[k] = __byte_perm((uint32_t)q.x, (uint32_t)q.y, 0x5410);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < W; ++k) r.w[k] = (uint32_t)s[2 * k] | ((uint32_t)s[2 * k + 1] << 16);
-    }
-    return r;
-  }
-
-  __device__ __forceinline__ void store(int32_t* row, const E& a) const {
-    int32_t* d = row + 2 * W * tile.rank();
-    if ((reinterpret_cast<uintptr_t>(d) & 7) == 0) {
-      int2* v = reinterpret_cast<int2*>(d);
-#pragma unroll
-      for (int k = 0; k < W; ++k) v[k] = make_int2((int32_t)(a.w[k] & 0xFFFFu), (int32_t)(a.w[k] >> 16));
-    } else {
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        d[2 * k] = (int32_t)(a.w[k] & 0xFFFFu);
-        d[2 * k + 1] = (int32_t)(a.w[k] >> 16);
-      }
-    }
-  }
-};
-
 // A level of independent products split across the lanes of a tile; every
-// lane holds whole elements (see the top of this file).
+// lane holds whole elements.
 template <int NW, int T>
 struct TileProducts {
   static_assert(NW % T == 0, "the tile size must divide the word count");
   using E = Fe<NW>;
 
-  Tile<T> tile;
+  cg::thread_block_tile<T> tile;
   const FieldConsts& fc;
 
-  __device__ __forceinline__ TileProducts(const Tile<T>& t, const FieldConsts& c) : tile(t), fc(c) {}
+  __device__ __forceinline__ TileProducts(const FieldConsts& c)
+      : tile(cg::tiled_partition<T>(cg::this_thread_block())), fc(c) {}
 
   // r_k = a_k * b_k (lazy), in rounds of T: in a round lane j computes
   // product r0 + j (the last round's spare lanes repeat product r0), and
   // every lane receives each result.
   template <int N>
   __device__ __forceinline__ void mul_many(E (&r)[N], const E (&a)[N], const E (&b)[N]) const {
-    const int lane = tile.rank();
+    const int lane = (int)tile.thread_rank();
 #pragma unroll
     for (int r0 = 0; r0 < N; r0 += T) {
       E x = a[r0], y = b[r0];
@@ -329,7 +61,7 @@ struct TileProducts {
 #pragma unroll
       for (int k = r0; k < r0 + T && k < N; ++k) {
 #pragma unroll
-        for (int i = 0; i < NW; ++i) r[k].w[i] = tile.bcast(z.w[i], k - r0);
+        for (int i = 0; i < NW; ++i) r[k].w[i] = tile.shfl(z.w[i], k - r0);
       }
     }
   }

@@ -53,48 +53,44 @@ def _nvcc() -> str:
     raise DeviceError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(sources: tuple, defines: tuple) -> str:
-    h = hashlib.sha256(" ".join(FLAGS + defines).encode())
-    for name in HEADERS + sources:
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in HEADERS + SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def library_path(sources: tuple = SOURCES, defines: tuple = ()) -> str:
-    return os.path.join(get_config().build_dir("kernels"), f"libtec_kernels_{_digest(sources, defines)}.so")
+def library_path() -> str:
+    return os.path.join(get_config().build_dir("kernels"), f"libtec_kernels_{_digest()}.so")
 
 
-def ptxas_report(path: str | None = None) -> str:
-    """The ``-Xptxas -v`` output of a build (registers, spills per kernel):
-    the library's, or that of the library at ``path``."""
-    with open((path or library_path()) + ".ptxas.txt") as f:
+def ptxas_report() -> str:
+    """The ``-Xptxas -v`` output of the build (registers, spills per kernel)."""
+    with open(library_path() + ".ptxas.txt") as f:
         return f.read()
 
 
-def build(sources: tuple = SOURCES, defines: tuple = ()) -> float:
+def build() -> float:
     """Compile the library if it is not built yet; returns the seconds taken.
 
-    One nvcc per source, all started together, then one link.  ``sources``
-    and ``defines`` (``-D`` flags) build a library of some sources alone, or
-    of other compile-time choices (``utils/tile_sweep.py``); the package
-    loads only the default build."""
-    out = library_path(sources, defines)
+    One nvcc per source, all started together, then one link."""
+    out = library_path()
     if os.path.exists(out):
         return 0.0
     t0 = time.perf_counter()
     tmp = f"{out}.tmp{os.getpid()}"
     nvcc = _nvcc()
-    objs = [f"{tmp}.{os.path.splitext(src)[0]}.o" for src in sources]
+    objs = [f"{tmp}.{os.path.splitext(src)[0]}.o" for src in SOURCES]
     procs = [
         subprocess.Popen(
-            [nvcc, *FLAGS, *defines, "-c", "-o", obj, os.path.join(CSRC, src)],
+            [nvcc, *FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for src, obj in zip(sources, objs)
+        for src, obj in zip(SOURCES, objs)
     ]
     reports = []
-    for src, proc in zip(sources, procs):
+    for src, proc in zip(SOURCES, procs):
         _, err = proc.communicate()
         if proc.returncode != 0:
             for other in procs:
@@ -117,37 +113,39 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
-        if _lib is None:
-            build()
-            _lib = bind(ctypes.CDLL(library_path()))
-        return _lib
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of the entry points ``lib`` has."""
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sigs = {
-        "tec_mont_mul": [i32, vp, vp, vp, i64, i64, vp, vp],
-        "tec_inter": [vp, i32, vp, i32, vp, i32, i64, vp, vp],
-        "tec_point": [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp],
-        "tec_point_horner": [i32, vp, vp, i32, i64, i32, vp, vp, vp],
-        "tec_point_scalar_mul": [i32, vp, vp, vp, i64, vp, i64, vp, vp],
-        "tec_ec_fft_stage": [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp],
-        "tec_chain_tile": [i32],
-        "tec_pease_rows_fit": [i32, i32],
-        "tec_pease_rows": [i32, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp],
-        "tec_pease_stage": [i32, vp, vp, vp, i64, i32, i32, i32, vp, vp],
-        "tec_ntt_leaf": [i32, vp, vp, vp, vp, i32, i64, i64, vp, vp],
-        "tec_affine": [i32, i32, vp, vp, vp, i64, i64, vp, vp, i64, vp, vp],
-    }
-    for name, args in sigs.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, i32
-    if hasattr(lib, "tec_error_string"):
+        if _lib is not None:
+            return _lib
+        build()
+        lib = ctypes.CDLL(library_path())
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.tec_mont_mul.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
+        lib.tec_mont_mul.restype = i32
+        lib.tec_inter.argtypes = [vp, i32, vp, i32, vp, i32, i64, vp, vp]
+        lib.tec_inter.restype = i32
+        lib.tec_point.argtypes = [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp]
+        lib.tec_point.restype = i32
+        lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i64, i32, vp, vp, vp]
+        lib.tec_point_horner.restype = i32
+        lib.tec_point_scalar_mul.argtypes = [i32, vp, vp, vp, i64, vp, i64, vp, vp]
+        lib.tec_point_scalar_mul.restype = i32
+        lib.tec_ec_fft_stage.argtypes = [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]
+        lib.tec_ec_fft_stage.restype = i32
+        lib.tec_chain_tile.argtypes = [i32]
+        lib.tec_chain_tile.restype = i32
+        lib.tec_pease_rows_fit.argtypes = [i32, i32]
+        lib.tec_pease_rows_fit.restype = i32
+        lib.tec_pease_rows.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        lib.tec_pease_rows.restype = i32
+        lib.tec_pease_stage.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32, vp, vp]
+        lib.tec_pease_stage.restype = i32
+        lib.tec_ntt_leaf.argtypes = [i32, vp, vp, vp, vp, i32, i64, i64, vp, vp]
+        lib.tec_ntt_leaf.restype = i32
+        lib.tec_affine.argtypes = [i32, i32, vp, vp, vp, i64, i64, vp, vp, i64, vp, vp]
+        lib.tec_affine.restype = i32
         lib.tec_error_string.argtypes = [i32]
         lib.tec_error_string.restype = ctypes.c_char_p
-    return lib
+        _lib = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -9,11 +9,12 @@ multiplication chain of ``tpu_ec/curves/point.py::PointOps.scalar_mul``
 (one tile of lanes a point) and one stage of the EC-group FFT
 (``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile a butterfly).  The
 kernels are ``csrc/point.cu`` and, for the last two, ``csrc/chain.cu``,
-whose lanes split each field product (``csrc/field_tile.cuh``).  The plain
-version below evaluates the same
-formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
-computes the doubling branch only on the rows that select it), so both are
-bit-identical to ``tpu_ec``'s PointOps.
+where a tile of 4 lanes runs each chain and computes each level of a point
+op's independent products side by side (``csrc/field_tile.cuh``).  The
+plain version below evaluates the same formulas with the same select tree
+as ``tpu_ec/ops/pallas/point.py`` (it computes the doubling branch only on
+the rows that select it), so both are bit-identical to ``tpu_ec``'s
+PointOps.
 """
 
 from __future__ import annotations
