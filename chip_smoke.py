@@ -9,22 +9,26 @@ Phases, each failing the run on any error:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels (csrc/, one nvcc per source for sm_90a, in
    parallel) and the native C++ referee (g++), with the seconds each took,
-   the kernels' register and spill counts from ``-Xptxas -v`` and the
+   the kernels' register and spill counts from ``-Xptxas -v``, the
    instruction mix of one 12-word Montgomery product (K1's kernel, from
-   ``cuobjdump -sass``);
+   ``cuobjdump -sass``) and one product's latency on one thread at 8 and 12
+   words (a dependent chain of 2^14 products, held against its plain
+   version on 64): the unit of the chains' serial bounds;
 3. kernels: every kernel against its plain PyTorch version on the same card
    tensors, bit-exact, with both times and the bound of its work: K1
    (Montgomery product), K2 (digit-NTT twiddle), K3 (point add / add_mixed
    / double on 2^16 rows with identity, P == Q and P == -Q rows, the
-   keep / out= entry, and the Horner combine at the commit's 19 windows of
-   w = 14), K5 (Pease stages at the shape of a 2^9 NTT batch: one stage,
-   then all nine with the bit reversal, beside nine one-stage launches
-   and a gather), K4 (leaf NTT at the leaf shapes of the
-   2^n fused plan, and with its level epilogue at the plan's level shapes,
-   beside the leaf + K1 + transpose it replaces), K7 (affine denom
+   keep / out= entry, and K3's Horner entry at the commit's 19 windows of
+   w = 14, bounded by its product levels in series), K5 (Pease stages at
+   the shape of a 2^9 NTT batch: one stage, then all nine with the bit
+   reversal, beside nine one-stage launches and a gather), K4 (leaf NTT
+   at the leaf shapes of the 2^n fused plan, and with its level epilogue
+   at the plan's level shapes, beside the leaf + K1 + transpose it
+   replaces), K7 (affine denom
    and apply) and K6 (co-Z apply), the last three on 2^16 pairs of valid
    G1 points with identity, P == Q and P == -Q rows (K6 and K7's denom
-   half are held and timed again at the co-Z path's shape in phase 4c);
+   half are held and timed again at the co-Z path's shape in phase 4c), K7
+   apply also on 2^n random rows, timed by device time (a CUDA graph);
 4. the main path: ``CommitPipeline(BLS12_381_G1).commit`` on random
    Montgomery coefficients and 2^n points k*G, the evaluations checked
    bit-exact against the native C++ NTT and the commitment against the
@@ -48,9 +52,9 @@ Phases, each failing the run on any error:
 4d. ``affine_add_batch`` (K7's apply half) on the phase-3 pairs, against
    the Jacobian mixed add; then the device time of each hand kernel over
    one commit, one co-Z MSM, one fused NTT, one ``radix_fft_many`` and
-   one ``affine_add_batch`` (torch.profiler); a profile that fails or
-   holds no device time fails the run, and so does any device op of the
-   fused NTT or ``radix_fft_many`` other than K4 and K5;
+   one ``affine_add_batch`` (torch.profiler); a profile that fails, or
+   holds no device time in three traces, fails the run, and so does any
+   device op of the fused NTT or ``radix_fft_many`` other than K4 and K5;
 4e. the AMT batch, ``multiple_multiexp`` on BLS12-381 G1: shape A, 2^10-point
    chunks x 2^(n-10) (phase 4's points, fresh Fr scalars), every chunk
    against the native C++ Pippenger, ms per batch, points/s, the slab,
@@ -58,8 +62,8 @@ Phases, each failing the run on any error:
    predict; shape B, four times the chunks (the points tiled four times),
    64 sampled chunks against native; the scan engine's batch (2^6 chunks)
    and one 2^16 scan MSM against the pair engine's; K3's batched Horner
-   against its plain version on shape A's own window sums, with its bound
-   and the serial bound of one chain; a torch.profiler split of one
+   against its plain version on shape A's own window sums, bounded by its
+   longest chain's product levels in series; a torch.profiler split of one
    shape-A batch;
 4f. the EC-group FFT (``EcFftKernel``) on BN254 G1 at 2^4 .. 2^11 and on
    BLS12-381 G1 at 2^11, every output against the native C++ EC-FFT (affine),
@@ -231,6 +235,7 @@ KERNEL_LABELS = (
     ("ntt_leaf_kernel", ("K4 ntt_leaf", "K4 ntt_leaf+level")), ("pease_rows_kernel", "K5 pease_rows"),
     ("pease_stage_kernel", "K5 pease_stage (rows too long for one block)"),
     ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
+    ("apply_kernel", "K7 affine_apply"), ("mul_chain_kernel", "mul_chain (the chains' product latency)"),
 )
 
 
@@ -245,6 +250,43 @@ def kernel_label(name: str) -> str:
                 label, args = label[int(args[1])], args[:1]
             return f"{label}<{','.join(args)}>" if args else label
     return name
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn``, a kernel wrapper: ``iters``
+    calls captured in one CUDA graph and replayed, so the device runs them
+    back to back and the host's launch cost between them is not timed (CUDA
+    events around eager calls time that cost where it exceeds the kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def traced(fn, label: str, attempts: int = 3) -> tuple[dict, float, list]:
+    """device_split of one call of ``fn``, traced again where a trace holds no
+    device time: torch.profiler at times records nothing of a call (seen in
+    this script's traces of the fused NTT and of radix_fft_many, on the
+    parent's code and on this one's).  Fails the run if every trace is
+    empty."""
+    for _ in range(attempts):
+        got = device_split(fn)
+        if got is not None:
+            return got
+        print(f"profile {label}: the trace holds no device time; tracing again", flush=True)
+    raise SystemExit(f"profile {label}: {attempts} traces held no device time")
 
 
 def device_split(fn) -> tuple[dict, float, list] | None:
@@ -337,7 +379,8 @@ class Kernels:
         "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "point_horner_batch": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner_batch": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
         "point_scalar_mul": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ec_fft_stage": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
@@ -354,9 +397,13 @@ class Kernels:
         self.rows: dict[str, dict] = {}
         self.launches: dict[str, int] = {}
 
-    def measured(self, name, *, ms, plain_ms, err, nbytes, imads):
+    def measured(self, name, *, ms, plain_ms, err, nbytes, imads, serial_ms=0.0):
+        """A kernel's row: its bound is the larger of its bytes over the memory
+        rate, its IMADs over the card's IMAD rate and, for a chain, its
+        products in series at one product's latency (``serial_ms``, an
+        operations bound too)."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = imads / self.imad_rate * 1e3
+        t_ops = max(imads / self.imad_rate * 1e3, serial_ms)
         self.rows[name] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=max(err, self.rows.get(name, {}).get("max_abs_err", 0)),
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -377,6 +424,22 @@ class Kernels:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             })
         return json.dumps({"kernels": out})
+
+
+def horner_work(S, w: int) -> tuple[int, int]:
+    """(product levels of the longest chain, products of all chains) of the
+    Horner combine on window sums S, (W, L) or (W, C, L) coordinates, as
+    K3's Horner entry runs it: a doubling 3 levels (7 products), run once the
+    result is not all zero; an add 5 levels (16 products), run where both
+    the result and the window sum have z != 0 (an identity operand is a
+    copy).  The result counts as nonzero from the first nonzero sum on."""
+    X, Y, Z = (c if c.dim() == 3 else c.unsqueeze(1) for c in S)
+    nz = ((X != 0) | (Y != 0) | (Z != 0)).any(-1).long()  # (W, C)
+    zn = (Z != 0).any(-1).long()
+    above = lambda m: (m.flip(0).cumsum(0).flip(0) - m) > 0  # some window above j, added before it
+    dbl = above(nz).long() * w
+    add = (above(zn) & (zn > 0)).long()
+    return int((3 * dbl + 5 * add).sum(0).max()), int((7 * dbl + 16 * add).sum())
 
 
 def on_path(kernels_mod, report: Kernels | None, owned: tuple, label: str, fn, rows: dict | None = None):
@@ -459,7 +522,8 @@ def main() -> int:
     from tpu_ec_torch.kernels.mont import mont_mul, mont_mul_plain
     from tpu_ec_torch.kernels.ntt_leaf import ntt_leaf, ntt_leaf_plain
     from tpu_ec_torch.kernels.point import (chain_tile, ec_fft_stage, ec_fft_stage_plain, horner, horner_plain,
-                                            point_op, point_op_plain, point_scalar_mul, scalar_mul_plain)
+                                            mul_chain, mul_chain_plain, point_op, point_op_plain, point_scalar_mul,
+                                            scalar_mul_plain)
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
     from tpu_ec_torch.ops.density import DensityTracker, compact_by_density
@@ -505,6 +569,19 @@ def main() -> int:
     print(f"sass: K1 mont_mul<12> (one 12-word product, its loads and stores): "
           f"{sass_mix(build.library_path(), 'mont_mul_kernelILi12E')}; mont_imads(12) = {mont_imads(12)}",
           flush=True)
+
+    # one field product's latency on one thread (the unit of the chains'
+    # serial bounds): a dependent chain of products, held against its plain
+    # version (its own seed: the other phases' inputs stay the parent's)
+    lat, rng_lat = {}, np.random.default_rng(SEED + 1)
+    for spec in (BN254_FQ, BLS12_381_FQ):
+        a1, b1 = (torch.as_tensor(random_field(rng_lat, spec, 4)[3]).to(dev, torch.int32) for _ in range(2))
+        if not torch.equal(mul_chain(spec, a1, b1, 64), mul_chain_plain(spec, a1, b1, 64)):
+            raise SystemExit(f"mul_chain {spec.name}: the kernel disagrees with its plain version")
+        steps = 1 << 14
+        lat[spec.n_limbs // 2] = cuda_ms(lambda: mul_chain(spec, a1, b1, steps)) / steps
+        print(f"product latency {spec.name} ({spec.n_limbs // 2} words): {lat[spec.n_limbs // 2] * 1e3:.4f} us "
+              f"(a chain of {steps} products on one thread, == plain on 64) | {card}", flush=True)
 
     def check(name, label, got, want, k_ms, p_ms, **bound):
         bad, err = mismatch(got, want)
@@ -603,11 +680,13 @@ def main() -> int:
     S = [c[8 : 8 + nwin] for c in P]
     want, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, wp))
     h_ms = cuda_ms(lambda: horner(BLS12_381_FQ, S, wp))
-    horner_bound = (nwin * wp * 7 + nwin * 16) * mont_imads(L_fq // 2) / imad_rate * 1e3
-    check("point", f"K3 horner ({nwin}, {L_fq}) w={wp}", horner(BLS12_381_FQ, S, wp), want, h_ms, p_ms)
-    print(f"K3 horner: {h_ms:.4f} ms, bound {horner_bound:.4f} ms (operations; one thread, the "
-          f"{nwin * wp} doublings and {nwin} adds in series), ms / bound {h_ms / horner_bound:.1f} | {card}",
-          flush=True)
+    levels, prods = horner_work(S, wp)
+    check("point_horner", f"K3 horner ({nwin}, {L_fq}) w={wp}", horner(BLS12_381_FQ, S, wp), want, h_ms, p_ms,
+          nbytes=(nwin + 1) * 3 * L_fq * 4, imads=prods * mont_imads(L_fq // 2), serial_ms=levels * lat[L_fq // 2])
+    hb = report.rows["point_horner"]["bound_ms"]
+    print(f"K3 horner: {h_ms:.4f} ms, bound {hb:.4f} ms (operations in series: one chain of {levels} product "
+          f"levels x {lat[L_fq // 2] * 1e3:.4f} us, one product's latency; {prods} products), ms / bound "
+          f"{h_ms / hb:.2f} | {card}", flush=True)
 
     # K5 at the shape of the 2^9 NTT batch of radix_fft_many (phase 4b): one
     # stage, then every stage with the bit reversal in one launch
@@ -701,11 +780,29 @@ def main() -> int:
           cuda_ms(lambda: kaff.affine_denom(BLS12_381_FQ, x1, y1, x2, y2)),
           cuda_ms(lambda: pl(kaff.affine_denom_plain, x1, y1, x2, y2), iters=1))
     iv = batch_inverse(BLS12_381_FQ, d)
-    check("affine_apply", f"K7 affine_apply n={npts}", kaff.affine_apply(BLS12_381_FQ, x1, y1, x2, y2, iv),
-          pl(kaff.affine_apply_plain, x1, y1, x2, y2, iv),
-          cuda_ms(lambda: kaff.affine_apply(BLS12_381_FQ, x1, y1, x2, y2, iv)),
-          cuda_ms(lambda: pl(kaff.affine_apply_plain, x1, y1, x2, y2, iv), iters=1),
-          nbytes=7 * fq_b, imads=npts * 4 * mont_imads(L_fq // 2))
+
+    def apply_check(label, c, **bound):
+        """K7 apply against its plain version; its time by device time (a CUDA
+        graph of 20 launches: CUDA events around eager calls time the host's
+        launch rate at 2^16) beside the events'; 3 products a pair, 4 on
+        tangent rows."""
+        kern = lambda: kaff.affine_apply(BLS12_381_FQ, *c)
+        k_ms = graph_ms(kern)
+        ev_ms = cuda_ms(kern)
+        rows, tangent = c[0].shape[0], int(kaff._flags(*c[:4])[2].sum())
+        check("affine_apply", label, kern(), pl(kaff.affine_apply_plain, *c), k_ms,
+              cuda_ms(lambda: pl(kaff.affine_apply_plain, *c), iters=1),
+              **(dict(nbytes=7 * rows * L_fq * 4, imads=(3 * rows + tangent) * mont_imads(L_fq // 2))
+                 if bound else {}))
+        t_b = 7 * rows * L_fq * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"K7 affine_apply {rows} pairs ({tangent} tangent): device {k_ms:.4f} ms, CUDA events {ev_ms:.4f} ms; "
+              f"bytes bound {t_b:.4f} ms, device ms / bytes bound {k_ms / t_b:.2f} (device: a CUDA graph of 20 "
+              f"launches) | {card}", flush=True)
+
+    apply_check(f"K7 affine_apply n={npts}", (x1, y1, x2, y2, iv), bound=True)
+    rng_k7 = np.random.default_rng(SEED + 2)  # its own seed: the other phases' inputs stay the parent's
+    apply_check(f"K7 affine_apply n=2^{args.log_n}, random rows",
+                [torch.as_tensor(random_field(rng_k7, BLS12_381_FQ, n)).to(dev, torch.int32) for _ in range(5)])
     win = 4 if npts >= 4 else 1  # windows, each with its own product-tree root
     cw = [c.reshape(win, npts // win, L_fq) for c in (x1, y1, x2, y2)]
     pp, r1 = partial_products(BLS12_381_FQ, d.reshape(win, npts // win, L_fq))
@@ -727,7 +824,7 @@ def main() -> int:
     bases = pipe.msm.upload_bases(coords_from_u64(nc, bases_aff, 2, dev))
 
     t0 = time.perf_counter()
-    evals, commitment = on_path(kernels, report, ("mont_mul", "inter_twiddle", "point"), "commit",
+    evals, commitment = on_path(kernels, report, ("mont_mul", "inter_twiddle", "point", "point_horner"), "commit",
                                 lambda: pipe.commit(coeffs, bases))
     torch.cuda.synchronize()
     print(f"first commit {time.perf_counter() - t0:.2f} s, tables included", flush=True)
@@ -933,10 +1030,7 @@ def main() -> int:
                              ("radix_fft_many", lambda: pipe.fft.radix_fft_many(batch), True),
                              ("affine_add_batch", lambda: affine_add_batch(BLS12_381_FQ, (x1, y1), (x2, y2)),
                               False)):
-        got = device_split(fn)
-        if got is None:
-            raise SystemExit(f"profile {label}: the trace holds no device time")
-        split, busy, others = got
+        split, busy, others = traced(fn, label)
         parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
         print(f"profile {label}: device busy {busy:.4f} ms; hand kernels {parts} | {card}", flush=True)
         print(f"profile {label}: largest other device ops: "
@@ -1050,23 +1144,20 @@ def main() -> int:
     S = _unfuse(part, L_fq, 3)
     want, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, wb))
     hb_ms = cuda_ms(lambda: horner(BLS12_381_FQ, S, wb))
+    levels, prods = horner_work(S, wb)
     check("point_horner_batch", f"K3 horner batched ({nwin_b}, {slab_a}, {L_fq}) w={wb}",
           horner(BLS12_381_FQ, S, wb), want, hb_ms, p_ms,
-          nbytes=(nwin_b + 1) * slab_a * 3 * L_fq * 4,
-          imads=slab_a * nwin_b * (wb * 7 + 16) * mont_imads(L_fq // 2))
-    per_op = h_ms / (nwin * (wp + 1))  # phase 3's one-thread Horner, per point op
-    serial = nwin_b * (wb + 1) * per_op
+          nbytes=(nwin_b + 1) * slab_a * 3 * L_fq * 4, imads=prods * mont_imads(L_fq // 2),
+          serial_ms=levels * lat[L_fq // 2])
     hb_bound = report.rows["point_horner_batch"]["bound_ms"]
-    print(f"K3 horner batched: {hb_ms:.4f} ms, bound {hb_bound:.4f} ms (operations, {slab_a} chains side by "
-          f"side), ms / bound {hb_ms / hb_bound:.1f}; serial bound {serial:.4f} ms (one chain of "
-          f"{nwin_b * (wb + 1)} point ops x {per_op * 1e3:.2f} us, phase 3's one-thread Horner), ms / serial "
-          f"{hb_ms / serial:.2f} | {card}", flush=True)
+    print(f"K3 horner batched: {hb_ms:.4f} ms, bound {hb_bound:.4f} ms (operations in series: the longest of "
+          f"{slab_a} chains side by side, {levels} product levels x {lat[L_fq // 2] * 1e3:.4f} us, one product's "
+          f"latency; all chains' {prods} products at the IMAD rate "
+          f"{prods * mont_imads(L_fq // 2) / imad_rate * 1e3:.4f} ms), ms / bound {hb_ms / hb_bound:.2f} | {card}",
+          flush=True)
     del part, S, want
 
-    got = device_split(run_a)
-    if got is None:
-        raise SystemExit("profile AMT batch A: the trace holds no device time")
-    split, busy, others = got
+    split, busy, others = traced(run_a, "AMT batch A")
     k3_ms = sum(v[0] for k, v in split.items() if k.startswith("K3"))
     parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
     print(f"profile AMT batch A: device busy {busy:.4f} ms, K3 {k3_ms:.4f} ms; hand kernels {parts} | {card}",

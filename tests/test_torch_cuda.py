@@ -170,10 +170,47 @@ def test_point_kernel_unaligned_rows(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _horner_edge_sums(ops, C, w, kinds):
+    """(4, C, L) window sums of K3's Horner with one edge a chunk, chunk c
+    taking kinds[c % len(kinds)]: "same" (the second window's sum equals the
+    running result 2^w P: the add's P == Q branch), "cancel" (it equals
+    -2^w P), "garbage" (identities with z = 0 and x, y != 0 in the top and a
+    middle window), "zero" (every window the identity), "top" (the top two
+    windows the identity: the kernel skips their doublings), "random"."""
+    Wn = 4
+    _, P = _points(ops, 24)
+    idx = (torch.arange(Wn, device=P[0].device)[:, None] * 5
+           + torch.arange(C, device=P[0].device)[None, :] * 3) % 24
+    S = [c[idx].clone() for c in P]  # (Wn, C, L)
+    for c in range(C):
+        kind = kinds[c % len(kinds)]
+        top = tuple(x[Wn - 1, c : c + 1] for x in S)
+        if kind in ("same", "cancel"):
+            q = top
+            for _ in range(w):
+                q = ops.double(q)
+            if kind == "cancel":
+                q = (q[0], ops.F.neg(q[1]), q[2])
+            for x, v in zip(S, q):
+                x[Wn - 2, c] = v[0]
+        elif kind == "garbage":
+            for j in (Wn - 1, 1):
+                S[2][j, c] = 0
+        elif kind == "zero":
+            for x in S:
+                x[:, c] = 0
+        elif kind == "top":
+            for x in S:
+                x[Wn - 2 :, c] = 0
+    return S
+
+
 @pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1"])
 def test_horner_kernel_matches_loop(cuda, curve):
-    """One Horner launch == the loop of batched doubles and adds, with an
-    identity window, for w > 0 and w = 0."""
+    """One Horner launch (one tile of lanes a chunk) == the loop of batched
+    doubles and adds: with an identity window, for w > 0 and w = 0; then
+    with every edge of _horner_edge_sums, at C = 1, 2, 7, 9 (the last warp
+    not full) and 1025, w = 0, 1, 7, 14."""
     from tpu_ec_torch import curves
     from tpu_ec_torch.kernels.point import horner, horner_plain
 
@@ -186,6 +223,15 @@ def test_horner_kernel_matches_loop(cuda, curve):
     for w in (4, 0):
         got = horner(spec.base, S, w)
         assert all(torch.equal(g, h) for g, h in zip(got, horner_plain(spec.base, S, w))), w
+    kinds = ("same", "cancel", "garbage", "zero", "top", "random")
+    for w in (0, 1, 7, 14):
+        for C in (1, 2, 7, 9, 1025):
+            for first in range(len(kinds) if C == 1 else 1):  # C = 1: each edge in turn
+                S = _horner_edge_sums(ops, C, w, kinds[first:] + kinds[:first])
+                got = horner(spec.base, S, w)
+                assert got[0].shape == (C, ops.L)
+                want = horner_plain(spec.base, S, w)
+                assert all(torch.equal(g, h) for g, h in zip(got, want)), (w, C, first)
 
 
 def test_commit_matches_native(cuda):
@@ -293,6 +339,43 @@ def _affine_pairs(ops, n):
     return [fused[:, i * L : (i + 1) * L] for i in range(4)]
 
 
+def _affine_apply_edges(cuda, spec):
+    """K7's apply half (a warp moving its 32 pairs' rows) against its plain
+    version at n = 1, 127, 129 and 2^16 + 3 (ragged last warps), on column
+    slices of a fused (n, 5L) row matrix (16-byte aligned rows: the staged
+    path) and of one shifted by a word (each lane's own loads), with rows of
+    every flag at both ends: iz1, iz2, both, the tangent, the cancel, the
+    order-2 tangent (x1 == x2, y1 == y2 == 0) and a chord with y1 = 0."""
+    L = spec.n_limbs
+    pm = [((spec.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(L)]
+    for n in (1, 127, 129, (1 << 16) + 3):
+        c = [torch.as_tensor(_field(spec, max(n, 3), 60 + k)[:n]).to(cuda, torch.int32) for k in range(5)]
+        x1, y1, x2, y2, iv = c
+        for r in sorted({0, 7, n - 7} & set(range(0, max(n - 6, 1)))):
+            rows = list(range(r, min(r + 7, n)))
+            edits = [("iz1",), ("iz2",), ("iz1", "iz2"), ("same",), ("cancel",), ("y1z", "same"), ("y1z",)]
+            for i, e in zip(rows, edits):
+                if "iz1" in e:
+                    x1[i] = y1[i] = 0
+                if "iz2" in e:
+                    x2[i] = y2[i] = 0
+                if "y1z" in e:
+                    y1[i] = 0
+                if "same" in e:
+                    x2[i], y2[i] = x1[i], y1[i]
+                if "cancel" in e:
+                    x2[i] = x1[i]
+                    y2[i] = torch.tensor(pm, dtype=torch.int32, device=cuda)  # p - 1 != y1
+        want = kaff.affine_apply_plain(spec, x1, y1, x2, y2, iv)
+        for shift in (0, 1):
+            fused = torch.zeros((n, 5 * L + shift), dtype=torch.int32, device=cuda)
+            for k, t in enumerate(c):
+                fused[:, shift + k * L : shift + (k + 1) * L] = t
+            views = [fused[:, shift + k * L : shift + (k + 1) * L] for k in range(5)]
+            got = kaff.affine_apply(spec, *views)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (n, shift)
+
+
 def test_affine_kernels_match_plain(cuda):
     ops = PointOps(BLS12_381_G1, cuda)
     spec = BLS12_381_G1.base
@@ -309,6 +392,8 @@ def test_affine_kernels_match_plain(cuda):
     got = kaff.coz_apply(spec, *win, r, r3)
     want = kaff.coz_apply_plain(spec, *win, r, r3)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for field in (spec, tfp.BN254_FQ):
+        _affine_apply_edges(cuda, field)
 
 
 def test_coz_msm_matches_native(cuda):

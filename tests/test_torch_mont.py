@@ -117,3 +117,19 @@ def test_mont_plain_exact_at_extreme_limbs(name):
     got = limbs_to_numpy(mont_mul_plain(spec, limbs([a for a, _ in pairs]), limbs([b for _, b in pairs])))
     assert [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in got] == [model(a, b) for a, b in pairs]
     assert model(p - 1, p - 1) == (p - 1) ** 2 * pow(R, -1, p) % p
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FQ", "BN254_FQ"])
+def test_mul_chain_plain_matches_bigints(name):
+    """The chains' product-latency yardstick (``kernels.point.mul_chain``,
+    one thread of the card; its plain version here): a b^k R^-k mod p, as
+    Python integers give it, for k = 0, 1, 5."""
+    from tpu_ec_torch.kernels.point import mul_chain
+
+    spec = getattr(tfp, name)
+    p, R = spec.modulus, 1 << (16 * spec.n_limbs)
+    a, b = _ints(spec, 7, 30)[5:7]
+    limbs = lambda v: torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(spec.n_limbs)], dtype=torch.int64)
+    for k in (0, 1, 5):
+        want = a * pow(b, k, p) * pow(pow(R, k, p), -1, p) % p
+        assert torch.equal(mul_chain(spec, limbs(a), limbs(b), k), limbs(want)), k

@@ -1,10 +1,14 @@
-// K3's chain entries: the scalar multiplication [k] P and one EC-FFT stage,
-// on the lane-tile field core (field_tile.cuh).
+// K3's chain entries: the Horner window combine of the MSM, the scalar
+// multiplication [k] P and one EC-FFT stage, on the lane-tile field core
+// (field_tile.cuh).
 //
 // Replace tpu_ec/ops/pallas/point.py:_point_call_list (K3, with point.cu's
 // point_kernel for the batched point ops) where tpu_ec runs it in a chain:
+// the Horner combine (tpu_ec/ops/msm_pair.py:horner_combine, and for a batch
+// of MSMs tpu_ec/ops/msm_batch.py:horner_combine_batch: from the identity,
+// w doublings and one add a window, top window first), one tile a chunk;
 // PointOps.scalar_mul (tpu_ec/curves/point.py:334-351, 256 MSB-first
-// double-and-add steps), one tile a point, and one Pease stage of
+// double-and-add steps), one tile a point; and one Pease stage of
 // tpu_ec/ops/ec_fft.py:_ec_fft_impl (u = a + b, v = [w^e](a - b)), one tile
 // a butterfly.  The formulas are point.cu's (dbl-2009-l, add-2007-bl with
 // the select tree of PointOps.add), the same products of the same operands,
@@ -12,10 +16,12 @@
 // Jacobian outputs are bit-identical to tpu_ec's PointOps, not merely the
 // same points.
 //
-// Bound on the H100: the latency of one chain.  A chain is up to ~510 point
-// ops in series (~400 on random scalars), ~10 field products each; the
-// card's IMAD rate would run a 2^11 stage's 1024 chains in ~0.06 ms, but a
-// chain takes its ops' product latencies in series.
+// Bound on the H100: the latency of one chain.  A chain is a series of
+// point ops (the commit's Horner ~270, an AMT chunk's ~300, a scalar
+// multiplication up to ~510), ~10 field products each; the card's IMAD rate
+// would run a 2^11 stage's 1024 chains in ~0.06 ms, but a chain takes its
+// ops' product latencies in series: at best its levels of products (below)
+// times one product's latency (tec_mul_chain measures that).
 //
 // Design.  A tile of kTile lanes runs each chain.  The formulas are
 // written in levels of independent products (3 a doubling, 5 an add), and
@@ -26,9 +32,10 @@
 // scalar's bit, the chain's `same` flag) agrees across the tile.  Tiles of
 // consecutive butterflies share a warp, so from stage log2(32 / T) on the
 // tiles of a warp hold one scalar and the warp does not diverge either;
-// blocks of one warp spread a 2^11 stage over the SMs.  The rare P == Q
-// doubling of the adds runs in a separate non-inlined function that reads P
-// again.
+// blocks of one warp spread a 2^11 stage, or an AMT slab's 1024 Horner
+// chains, over the SMs.  The rare P == Q doubling of the stage's adds runs
+// in a separate non-inlined function that reads P again; in the Horner and
+// the scalar multiplication it is the chain's next doubling.
 #include "field_tile.cuh"
 
 namespace {
@@ -239,6 +246,61 @@ __device__ __forceinline__ void scalar_chain(const Field<NW>& f, const SP& P, co
   }
 }
 
+// The Horner combine, one tile a chunk c (args.n chunks): from the all-zero
+// identity, for j = windows-1 .. 0, res = 2^w res (w doublings), then res =
+// res + S_jc (PointOps.add, falling back to 2 res where res == S_jc), in
+// tpu_ec's order.  S: in[0..2] with row strides, row j * n + c.  While res
+// is all zero its doublings are skipped: the double of (0, 0, 0) is (0, 0,
+// 0), so every coordinate stays as tpu_ec's combine gives it.  One call
+// site of dbl serves the doublings and the rare res == S_jc fallback.
+template <int NW>
+__global__ void __launch_bounds__(kChainThreads)
+    horner_kernel(const __grid_constant__ ChainArgs args, int windows, int w, const __grid_constant__ FieldConsts fc) {
+  const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  if (c >= args.n) return;  // the whole tile
+  const Field<NW> f(fc);
+  RegPoint<NW> res{f.zero(), f.zero(), f.zero()};
+  RegPoint<NW> t;
+  const RegOut<NW> to{t};
+  int left = 0;       // doublings left before window j's add
+  bool same = false;  // the last add found res == S_jc: this doubling is its result
+#pragma unroll 1
+  for (int j = windows - 1; j >= 0;) {
+    if (left > 0 || same) {
+      dbl<NW>(f, res.x, res.y, res.z, to);
+      res = t;
+      if (!same) {
+        --left;
+        continue;
+      }
+      same = false;
+    } else {
+      if (!add_core<NW>(f, res, MemPoint<NW>{args, f, 0, j * args.n + c}, to)) {
+        same = true;
+        continue;
+      }
+      res = t;
+    }
+    --j;  // window j is in: the next one's doublings, unless res is all zero
+    left = f.is_zero(res.x) && f.is_zero(res.y) && f.is_zero(res.z) ? 0 : w;
+  }
+  const MemOut<NW> out{args, f, c};
+  out.X(res.x); out.Y(res.y); out.Z(res.z);
+}
+
+// The serial bound's yardstick, on no path: one thread runs `steps` field
+// products in series, x = x y (field.cuh's one-thread product, lazy, as
+// each lane of a tile computes it), and stores x canonical.
+template <int NW>
+__global__ void mul_chain_kernel(const int32_t* a, const int32_t* b, int steps, int32_t* out,
+                                 const __grid_constant__ FieldConsts fc) {
+  Fe<NW> x = tec::load_fe<NW>(a);
+  const Fe<NW> y = tec::load_fe<NW>(b);
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) x = tec::mul_eo<NW>(x, y, fc);
+  tec::store_fe<NW>(out, tec::fe_canon<NW>(x, fc));
+}
+
 // One tile a point i: out_i = [k_i] P_i.  P: in[0..2] with row strides, k:
 // 16 half-limbs a row with row stride k_stride (0: one scalar for all).
 template <int NW>
@@ -303,6 +365,15 @@ void geometry(long long n, unsigned& blocks, int& threads) {
 }
 
 template <int NW>
+int launch_horner(const ChainArgs& a, int windows, int w, const FieldConsts& c, cudaStream_t s) {
+  unsigned blocks;
+  int threads;
+  geometry(a.n, blocks, threads);
+  horner_kernel<NW><<<blocks, threads, 0, s>>>(a, windows, w, c);
+  return (int)cudaGetLastError();
+}
+
+template <int NW>
 int launch_scalar_mul(const ChainArgs& a, const int32_t* k, long long k_stride, const FieldConsts& c,
                       cudaStream_t s) {
   unsigned blocks;
@@ -323,6 +394,21 @@ int launch_stage(const ChainArgs& a, const int32_t* tw, long long half, int stag
 }
 
 }  // namespace
+
+// The Horner window combine of `chunks` MSMs side by side: in = 3 device
+// pointers of the (windows * chunks, 2*nw) per-window sums (X, Y, Z), row
+// j * chunks + c for window j of chunk c, with row strides; out = 3 device
+// pointers of (chunks, 2*nw) contiguous int32.  One tile a chunk.
+extern "C" int tec_point_horner(int nw, const void* const* in, const long long* in_stride, int windows,
+                                long long chunks, int w, void* const* out, const uint32_t* fc, void* stream) {
+  if (windows <= 0 || chunks <= 0 || w < 0) return (int)cudaErrorInvalidValue;
+  const ChainArgs a = make_args(in, in_stride, 3, out, 2 * nw, chunks);
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) return launch_horner<8>(a, windows, w, c, s);
+  if (nw == 12) return launch_horner<12>(a, windows, w, c, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // [k_i] P_i for n points: in = 3 device pointers of (n, 2*nw) int32
 // coordinates with row strides (0: one point for all), k = (n, 16) int32
@@ -363,7 +449,25 @@ extern "C" int tec_ec_fft_stage(int nw, const void* const* in, long long in_stri
   return (int)cudaErrorInvalidValue;
 }
 
-// The lanes a field element of nw words takes in the two kernels above.
+// The lanes a field element of nw words takes in the three chain kernels above.
 extern "C" int tec_chain_tile(int nw) {
   return nw == 8 || nw == 12 ? kTile : 0;
+}
+
+// out = a b^steps R^-steps, canonical, by `steps` products in series on one
+// thread: a, b, out one (2*nw) int32 element each.  Times one product's
+// latency (the serial bound of the chains above).
+extern "C" int tec_mul_chain(int nw, const void* a, const void* b, int steps, void* out, const uint32_t* fc,
+                             void* stream) {
+  if (steps < 0) return (int)cudaErrorInvalidValue;
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) {
+    mul_chain_kernel<8><<<1, 1, 0, s>>>((const int32_t*)a, (const int32_t*)b, steps, (int32_t*)out, c);
+  } else if (nw == 12) {
+    mul_chain_kernel<12><<<1, 1, 0, s>>>((const int32_t*)a, (const int32_t*)b, steps, (int32_t*)out, c);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -6,7 +6,7 @@
 // canon; neg; is_zero), so any sequence of them is bit-identical to the
 // same sequence of field.cuh calls, and so to tpu_ec's FieldOps; field.cuh's
 // one-thread functions stay as they are for K1, K2, K4-K7 and K3's point
-// and Horner kernels.
+// kernel.
 //
 // mul_many takes a level of independent products and splits them across
 // the lanes: lane k computes product k with field.cuh's one-thread

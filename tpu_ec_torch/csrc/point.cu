@@ -1,18 +1,13 @@
-// K3: batched Jacobian point ops over a short-Weierstrass a = 0 curve, and
-// the Horner window combine of the pair MSM.
+// K3: batched Jacobian point ops over a short-Weierstrass a = 0 curve.
 //
 // Replaces tpu_ec/ops/pallas/point.py:_point_call_list (and _point_call;
 // entries jac_add, jac_add_mixed, jac_double): add-2007-bl, madd-2007-bl and
 // dbl-2009-l with the completeness select tree of
 // tpu_ec/ops/pallas/point.py:_add_body/_add_mixed_body (identity, P == Q,
-// P == -Q).  The Horner entry runs tpu_ec/ops/msm_pair.py:horner_combine
-// (w doublings and one add a window, top window first) in one launch with
-// the same device functions, and for a batch of MSMs
-// tpu_ec/ops/msm_batch.py:horner_combine_batch, one thread a chunk in the
-// same launch.  (K3's chain entries, the scalar multiplication and the
-// EC-FFT stage, are chain.cu, on the lane-tile field core.)  Every stored
-// value is canonical, so the Jacobian outputs are bit-identical to tpu_ec's
-// PointOps, not merely the same point.
+// P == -Q).  (K3's chain entries, the Horner window combine, the scalar
+// multiplication and the EC-FFT stage, are chain.cu, on the lane-tile field
+// core.)  Every stored value is canonical, so the Jacobian outputs are
+// bit-identical to tpu_ec's PointOps, not merely the same point.
 //
 // Bound on the H100: integer-ALU.  An add is 16 field products (11 for the
 // mixed add) of about 600 IMADs each for BLS12-381 against 9 * 96 bytes of
@@ -41,8 +36,6 @@ using tec::FieldConsts;
 constexpr int kAdd = 0, kAddMixed = 1, kDouble = 2;
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
-// Horner: one warp a block, so 1024 chunks take 32 SMs
-constexpr int kHornerThreads = 32;
 
 struct PointArgs {
   const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
@@ -75,18 +68,8 @@ struct MemPoint {
   }
 };
 
-// A point operand held in registers (the Horner accumulator).
-template <int NW>
-struct RegPoint {
-  Fe<NW> x, y, z;
-  __device__ __forceinline__ Fe<NW> X() const { return x; }
-  __device__ __forceinline__ Fe<NW> Y() const { return y; }
-  __device__ __forceinline__ Fe<NW> Z(const FieldConsts&) const { return z; }
-};
-
 // Where an op's result goes, one coordinate at a time as soon as it is
-// final (canonical): device memory (MemOut), so it leaves the registers at
-// once, or registers (RegOut, the Horner accumulator).
+// final (canonical): device memory, so it leaves the registers at once.
 template <int NW>
 struct MemOut {
   const PointArgs& a;
@@ -97,14 +80,6 @@ struct MemOut {
   __device__ __forceinline__ void X(const Fe<NW>& v) const { put(0, v); }
   __device__ __forceinline__ void Y(const Fe<NW>& v) const { put(1, v); }
   __device__ __forceinline__ void Z(const Fe<NW>& v) const { put(2, v); }
-};
-
-template <int NW>
-struct RegOut {
-  RegPoint<NW>& r;
-  __device__ __forceinline__ void X(const Fe<NW>& v) const { r.x = v; }
-  __device__ __forceinline__ void Y(const Fe<NW>& v) const { r.y = v; }
-  __device__ __forceinline__ void Z(const Fe<NW>& v) const { r.z = v; }
 };
 
 // dbl-2009-l (ec.cl:17-42); identity-safe: Z3 = 2*Y*Z = 0.
@@ -237,34 +212,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (!done) double_to<NW>(&args, 0, i, i, &fc);
 }
 
-// One thread a chunk c (args.n chunks): res = 2^w * res + S_jc for j =
-// windows-1 .. 0, from the identity.  S: (windows, chunks) coordinates
-// with row strides, row (j, c) at j * chunks + c; out: (chunks, L) rows.
-// A chain is serial, so a thread's time is its chain's latency; small
-// blocks spread the chunks over many SMs.
-template <int NW>
-__global__ void horner_kernel(const __grid_constant__ PointArgs args, int windows, int w,
-                              const __grid_constant__ FieldConsts fc) {
-  using namespace tec;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= args.n) return;
-  RegPoint<NW> res{fe_zero<NW>(), fe_zero<NW>(), fe_zero<NW>()};
-  RegPoint<NW> t;
-  const RegOut<NW> to{t};
-#pragma unroll 1
-  for (int j = windows - 1; j >= 0; --j) {
-#pragma unroll 1
-    for (int k = 0; k < w; ++k) {
-      dbl<NW>(res.x, res.y, res.z, to, fc);
-      res = t;
-    }
-    if (!add_core<NW>(res, MemPoint<NW>{args, 0, j * args.n + c}, to, fc)) dbl<NW>(res.x, res.y, res.z, to, fc);
-    res = t;
-  }
-  const MemOut<NW> out{args, c};
-  out.X(res.x); out.Y(res.y); out.Z(res.z);
-}
-
 template <int NW>
 int launch(int op, const PointArgs& a, const FieldConsts& fc, cudaStream_t s) {
   const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
@@ -310,28 +257,4 @@ extern "C" int tec_point(int op, int nw, const void* const* in, const long long*
   if (nw == 8) return launch<8>(op, a, c, s);
   if (nw == 12) return launch<12>(op, a, c, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The Horner window combine of `chunks` MSMs side by side: in = the
-// (windows * chunks, 2*nw) per-window sums (X, Y, Z), row j * chunks + c
-// for window j of chunk c, with row strides; out = 3 device pointers of
-// (chunks, 2*nw) contiguous int32.  One thread a chunk, kHornerThreads a
-// block (one thread for one chunk).
-extern "C" int tec_point_horner(int nw, const void* const* in, const long long* in_stride,
-                                int windows, long long chunks, int w, void* const* out,
-                                const uint32_t* fc, void* stream) {
-  if (windows <= 0 || chunks <= 0 || w < 0) return (int)cudaErrorInvalidValue;
-  PointArgs a = make_args(3, in, in_stride, out, 2 * nw, chunks);
-  FieldConsts c = tec::field_consts_from_host(fc);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int threads = chunks < kHornerThreads ? (int)chunks : kHornerThreads;
-  const unsigned blocks = (unsigned)((chunks + threads - 1) / threads);
-  if (nw == 8) {
-    horner_kernel<8><<<blocks, threads, 0, s>>>(a, windows, w, c);
-  } else if (nw == 12) {
-    horner_kernel<12><<<blocks, threads, 0, s>>>(a, windows, w, c);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }

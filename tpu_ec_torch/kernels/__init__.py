@@ -2,7 +2,8 @@
 
 K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``,
 ``point.horner``, ``point.point_scalar_mul`` and ``point.ec_fft_stage``
-(the last three also counted apart), K4
+(the last three also counted apart; ``point.mul_chain`` times one product
+of their serial bound and is on no path), K4
 ``ntt_leaf.ntt_leaf`` (counted apart with and without its level epilogue),
 K5 ``butterfly.pease_stages`` and ``pease_stage``, K6 ``affine.coz_apply``,
 K7 ``affine.affine_denom`` and ``affine.affine_apply``.
@@ -14,7 +15,7 @@ from . import affine, butterfly, inter, mont, ntt_leaf, point
 
 _COUNTERS = (
     mont.LAUNCHES, inter.LAUNCHES, point.LAUNCHES, point.HORNER_LAUNCHES, point.CHAIN_LAUNCHES,
-    point.STAGE_LAUNCHES,
+    point.STAGE_LAUNCHES, point.MUL_CHAIN_LAUNCHES,
     ntt_leaf.LAUNCHES, ntt_leaf.LEVEL_LAUNCHES, butterfly.LAUNCHES,
     affine.COZ_LAUNCHES, affine.DENOM_LAUNCHES, affine.APPLY_LAUNCHES,
 )

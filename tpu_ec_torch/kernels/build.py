@@ -130,6 +130,8 @@ def load() -> ctypes.CDLL:
         lib.tec_point_scalar_mul.restype = i32
         lib.tec_ec_fft_stage.argtypes = [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]
         lib.tec_ec_fft_stage.restype = i32
+        lib.tec_mul_chain.argtypes = [i32, vp, vp, i32, vp, vp, vp]
+        lib.tec_mul_chain.restype = i32
         lib.tec_chain_tile.argtypes = [i32]
         lib.tec_chain_tile.restype = i32
         lib.tec_pease_rows_fit.argtypes = [i32, i32]

@@ -4,17 +4,17 @@ Replaces ``tpu_ec/ops/pallas/point.py::_point_call_list`` / ``_point_call``
 (entries ``jac_add``, ``jac_add_mixed``, ``jac_double``), and runs in one
 launch each: the MSM's Horner window combine
 (``tpu_ec/ops/msm_pair.py::horner_combine``, and for a batch of MSMs
-``tpu_ec/ops/msm_batch.py::horner_combine_batch``), the scalar
-multiplication chain of ``tpu_ec/curves/point.py::PointOps.scalar_mul``
-(one tile of lanes a point) and one stage of the EC-group FFT
-(``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile a butterfly).  The
-kernels are ``csrc/point.cu`` and, for the last two, ``csrc/chain.cu``,
-where a tile of 4 lanes runs each chain and computes each level of a point
-op's independent products side by side (``csrc/field_tile.cuh``).  The
-plain version below evaluates the same formulas with the same select tree
-as ``tpu_ec/ops/pallas/point.py`` (it computes the doubling branch only on
-the rows that select it), so both are bit-identical to ``tpu_ec``'s
-PointOps.
+``tpu_ec/ops/msm_batch.py::horner_combine_batch``, one tile of lanes a
+chunk), the scalar multiplication chain of
+``tpu_ec/curves/point.py::PointOps.scalar_mul`` (one tile a point) and one
+stage of the EC-group FFT (``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile
+a butterfly).  The kernels are ``csrc/point.cu`` for the batched ops and
+``csrc/chain.cu`` for the three chains, where a tile of 4 lanes runs each
+chain and computes each level of a point op's independent products side by
+side (``csrc/field_tile.cuh``).  The plain version below evaluates the same
+formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
+computes the doubling branch only on the rows that select it), so both are
+bit-identical to ``tpu_ec``'s PointOps.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ LAUNCHES = Launches("point")  # every K3 launch, those of the entries below too
 HORNER_LAUNCHES = Launches("point_horner")  # the Horner entry's launches
 CHAIN_LAUNCHES = Launches("point_scalar_mul")  # the scalar-multiplication chain's
 STAGE_LAUNCHES = Launches("ec_fft_stage")  # the EC-FFT stage entry's
+MUL_CHAIN_LAUNCHES = Launches("mul_chain")  # the chains' latency yardstick (on no path)
 
 SCALAR_LIMBS = 16  # plain Fr scalars of both curves: 256 bits, the chain's length
 
@@ -279,8 +280,8 @@ def horner_plain(spec: FieldSpec, partials, w: int) -> tuple:
 
 def horner(spec: FieldSpec, partials, w: int) -> tuple:
     """The Horner window combine of the MSM, or of C MSMs side by side, in
-    one kernel launch (one thread a chunk, the same device functions as the
-    point ops, so bit-identical to :func:`horner_plain`).  ``partials``: the
+    one kernel launch (one tile of lanes a chunk, on the point ops'
+    formulas, so bit-identical to :func:`horner_plain`).  ``partials``: the
     (W, L) per-window sums (X, Y, Z), or (W, C, L) for C chunks, int32 with
     contiguous last axes on CUDA (row strides go to the kernel); returns
     (1, L), or (C, L), coordinates.  CPU tensors take the plain version."""
@@ -374,9 +375,39 @@ def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
 
 def chain_tile(spec: FieldSpec) -> int:
     """The lanes that hold one element of ``spec`` in the chain entries
-    (:func:`point_scalar_mul`, :func:`ec_fft_stage`), fixed in
-    ``csrc/chain.cu``; builds the kernels on first call."""
+    (:func:`horner`, :func:`point_scalar_mul`, :func:`ec_fft_stage`), fixed
+    in ``csrc/chain.cu``; builds the kernels on first call."""
     return load().tec_chain_tile(spec.n_limbs // 2)
+
+
+def mul_chain_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, steps: int) -> torch.Tensor:
+    """Plain version of :func:`mul_chain`: a b^steps R^-steps, one canonical
+    (L,) element, by ``steps`` Montgomery products."""
+    x = a.to(torch.int64)
+    for _ in range(steps):
+        x = mont_mul_plain(spec, x, b.to(torch.int64))
+    return x.to(a.dtype)
+
+
+def mul_chain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` field products in series on one thread of the card, x = x b
+    from x = a (``csrc/chain.cu``, field.cuh's one-thread product): its time
+    over ``steps`` is one product's latency, the unit of the chains' serial
+    bound.  ``a``, ``b``: one canonical (L,) element each.  CPU tensors take
+    the plain version."""
+    if steps < 0:
+        raise ValueError(f"mul_chain: steps must be >= 0, got {steps}")
+    if a.device.type == "cpu":
+        return mul_chain_plain(spec, a, b, steps)
+    L = spec.n_limbs
+    for name, t in (("a", a), ("b", b)):
+        check_cuda(t, f"mul_chain {name}", torch.int32, (L,))
+    out = torch.empty(L, dtype=torch.int32, device=a.device)
+    lib = load()
+    check(lib, lib.tec_mul_chain(L // 2, a.data_ptr(), b.data_ptr(), steps, out.data_ptr(), field_consts(spec),
+                                 stream()), "mul_chain")
+    MUL_CHAIN_LAUNCHES.count += 1
+    return out
 
 
 def _stage_log_n(coords, tw: torch.Tensor, s: int) -> int:

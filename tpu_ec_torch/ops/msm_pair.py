@@ -19,7 +19,7 @@ PyTorch counterpart of ``tpu_ec/ops/msm_pair.py`` and of the flat engine of
      a strided segmented scan that keeps each run's last entry;
   4. the unique survivors scatter into a (C, half + 2)-slot bucket array,
      then the triangular tails (``ops/msm_scan.py::bucket_tail``) and the
-     Horner window combine, one K3 thread a chunk.
+     Horner window combine, one K3 tile of lanes a chunk.
 
 Where ``tpu_ec`` maps windows with ``vmap``/``lax.map``, every tensor here
 has an explicit leading window axis, so each round is one batched point
@@ -206,7 +206,7 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
 def horner_combine(ops: PointOps, partials, w: int):
     """Per-window sums (W, L), or (W, C, L) for a batch, coordinates -> the
     final point (1, L), or (C, L), high to low: res = 2^w * res + S_j
-    (multiexp.rs:221-235), in one K3 launch, one thread a chunk."""
+    (multiexp.rs:221-235), in one K3 launch, one tile of lanes a chunk."""
     return horner(ops.spec.base, partials, w)
 
 

@@ -11,7 +11,7 @@ and for a batch all chunks, in one tensor):
   2. triangular tail sum_k k * b_k: inclusive prefix scan of the reversed
      bucket row, summed by a halving tree (``masked_prefix_scan_add``,
      ``masked_tree_sum``; every engine's tail is ``bucket_tail``);
-  3. the Horner window combine (kernel K3, one thread a chunk).
+  3. the Horner window combine (kernel K3, one tile of lanes a chunk).
 
 It does ~log2(n) times the pair engine's adds; ``tpu_ec`` built it for its
 short XLA compile.  Fused blocks carry 3 * ext * L columns as in ``tpu_ec``;
