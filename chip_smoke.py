@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpu_ec_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20 (AMT batch: 2^10 x 2^10 and 2^10 x 2^12)
+    python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20 (AMT batch: 2^10 x 2^10 and 2^10 x 2^12), G2 at 2^20
     python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check (AMT chunks of 2^7)
 
 Phases, each failing the run on any error:
@@ -83,6 +83,24 @@ Phases, each failing the run on any error:
    ``commit_coefficient_basis`` and ``commit_sparse`` (a seeded
    half-density ``DensityTracker``, skip 0) at 2^n on phase 4's data, each
    against the native Pippenger over the same terms, with ms;
+4g. G2, on K3's Fq2 instances: ``MultiexpKernel(BLS12_381_G2).multiexp``
+   with "auto" (the scan engine, as in tpu_ec) at 2^n on points k_i G2 (random
+   64-bit k_i, native scalar mul), its commitment against (sum k_i s_i) G2
+   from one native scalar multiplication, its Fq2 K3 launches against the
+   count the scan rounds predict and no G1 launch; ms (mean of 3),
+   points/s, the window, chunks, peak memory; both curves at 2^16 against
+   the native Pippenger; ``multiple_multiexp`` 2^6 x 2^10, every chunk
+   against native; ``PointOps.scalar_mul`` on 1024 points against native;
+   ``EcFftKernel`` on BN254 and BLS12-381 G2 at 2^11, forward against the
+   native EC-FFT and the inverse against its input; a 2^16 G2
+   ``CommitPipeline.commit`` against the native NTT and Pippenger; each
+   Fq2 instance against its plain version with times and bounds (the add
+   at the main path's shape, round 0 of its segmented scan: the fused
+   (W, 2^n, 144) block of its own sorted rows (W = 16 at 2^20) with keep
+   and out=; the point ops on 2^16 rows with identity, P == Q and P == -Q
+   rows, and the keep / out= entry; the Horner at the main path's own
+   window sums; the chain at 1024 points; the stage at stage 0 of the
+   BN254 2^11 transform);
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -107,6 +125,10 @@ SEED = 20240601
 CHUNK = 1 << 18  # rows per call of a plain version (bounds its temporaries)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_CLOCK_SM = 64  # 32-bit integer multiply-adds per clock per SM (sm_90)
+# field products of a point op, the bounds' count: G1 (Fq), and G2 in Fq
+# products (an Fq2 product 3, an Fq2 square 2: 2M + 5S, 11M + 5S, 7M + 4S)
+FQ_PRODUCTS = {"double": 7, "add": 16, "add_mixed": 11}
+FP2_PRODUCTS = {"double": 16, "add": 43, "add_mixed": 29}
 
 
 def card_line() -> str:
@@ -207,22 +229,28 @@ def random_points(nc, rng, n: int):
 
 
 def coords_from_u64(nc, arr, k: int, device):
-    """k coordinates of a native (n, k*w) u64 array -> port tensors."""
+    """k coordinates of a native (n, k*w) u64 array -> port tensors (G2:
+    (n, 2L) each, c0 then c1)."""
     import torch
 
     w = nc.w
     return tuple(
-        torch.as_tensor(nc.fq.to_halflimbs(arr[:, i * w : (i + 1) * w]).astype("int64"))
+        torch.as_tensor(nc.coord_to_halflimbs(arr[:, i * w : (i + 1) * w]).astype("int64"))
         .to(device=device, dtype=torch.int32)
         for i in range(k)
     )
 
 
+def native_affine(nc, P):
+    """Port Jacobian coordinates -> native affine (n, 2w) u64."""
+    return nc.to_affine(affine_to_u64(nc, P))
+
+
 def affine_to_u64(nc, xy):
-    """Port affine (x, y) with batch (1,) -> the native (1, 2w) u64 layout."""
+    """Port coordinates (an affine (x, y), or Jacobian) -> the native u64 layout."""
     import numpy as np
 
-    return np.concatenate([nc.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in xy], axis=1)
+    return np.concatenate([nc.coord_from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in xy], axis=1)
 
 
 # kernel name in the mangled symbol -> label; a tuple is indexed by the op
@@ -240,15 +268,15 @@ KERNEL_LABELS = (
 
 
 def kernel_label(name: str) -> str:
-    """Label of a kernel's mangled (ptxas) or demangled (profiler) name."""
-    args = re.findall(r"Li(\d+)E", name)
-    if not args and (m := re.search(r"<([\d, ]+)>", name)):
-        args = [a.strip() for a in m.group(1).split(",")]
+    """Label of a kernel's mangled (ptxas) or demangled (profiler) name; K3's
+    Fq2 (G2) instances get " fp2" after the label."""
+    args = re.findall(r"Li(\d+)E", name) or re.findall(r"(?<=[<, ])(\d+)(?=[>,])", name)
+    fp2 = " fp2" if ("Ext2" in name or "TileProducts2" in name) else ""
     for key, label in KERNEL_LABELS:
         if key in name:
             if isinstance(label, tuple):
                 label, args = label[int(args[1])], args[:1]
-            return f"{label}<{','.join(args)}>" if args else label
+            return f"{label}{fp2}<{','.join(args)}>" if args else label + fp2
     return name
 
 
@@ -378,11 +406,16 @@ class Kernels:
     INFO = {
         "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
-        "point": ("csrc/point.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "point_horner": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "point_horner_batch": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "point_scalar_mul": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
-        "ec_fft_stage": ("csrc/chain.cu", "tpu_ec/ops/pallas/point.py:244"),
+        "point": ("csrc/point.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner_batch": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_scalar_mul": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "ec_fft_stage": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        # K3's Fq2 instances (G2; tpu_ec runs G2 on jnp, through no Pallas kernel)
+        "point_fp2": ("csrc/point.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_horner_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_scalar_mul_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "ec_fft_stage_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
@@ -426,20 +459,22 @@ class Kernels:
         return json.dumps({"kernels": out})
 
 
-def horner_work(S, w: int) -> tuple[int, int]:
-    """(product levels of the longest chain, products of all chains) of the
-    Horner combine on window sums S, (W, L) or (W, C, L) coordinates, as
-    K3's Horner entry runs it: a doubling 3 levels (7 products), run once the
-    result is not all zero; an add 5 levels (16 products), run where both
-    the result and the window sum have z != 0 (an identity operand is a
-    copy).  The result counts as nonzero from the first nonzero sum on."""
+def horner_work(S, w: int, products: dict | None = None) -> tuple[int, int]:
+    """(product levels of the longest chain, Fq products of all chains) of
+    the Horner combine on window sums S, (W, L) or (W, C, L) coordinates, as
+    K3's Horner entry runs it: a doubling 3 levels (``products["double"]``
+    products: 7 on G1, 16 on G2), run once the result is not all zero; an
+    add 5 levels (16, or 43), run where both the result and the window sum
+    have z != 0 (an identity operand is a copy).  The result counts as
+    nonzero from the first nonzero sum on."""
+    products = products or FQ_PRODUCTS
     X, Y, Z = (c if c.dim() == 3 else c.unsqueeze(1) for c in S)
     nz = ((X != 0) | (Y != 0) | (Z != 0)).any(-1).long()  # (W, C)
     zn = (Z != 0).any(-1).long()
     above = lambda m: (m.flip(0).cumsum(0).flip(0) - m) > 0  # some window above j, added before it
     dbl = above(nz).long() * w
     add = (above(zn) & (zn > 0)).long()
-    return int((3 * dbl + 5 * add).sum(0).max()), int((7 * dbl + 16 * add).sum())
+    return int((3 * dbl + 5 * add).sum(0).max()), int((products["double"] * dbl + products["add"] * add).sum())
 
 
 def on_path(kernels_mod, report: Kernels | None, owned: tuple, label: str, fn, rows: dict | None = None):
@@ -491,6 +526,345 @@ def profile_ec_fft(log_n: int) -> int:
         traced = None if got is None else got[0].get("K3 ec_fft_stage", [0, 0])[1]
         print(f"trace {attempt}: {traced} of {launches} stage launches", file=sys.stderr)
     return 1
+
+
+def chain_steps(k) -> tuple[list, list]:
+    """(doubles, adds) of each chain of K3's chain entry on the plain
+    scalars k (n, 16): a double a bit below the top set bit, an add a set
+    bit below it."""
+    import numpy as np
+
+    kn = k.reshape(-1, k.shape[-1]).cpu().numpy().astype(np.int64)
+    vals = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in kn]
+    return [max(v.bit_length() - 1, 0) for v in vals], [max(bin(v).count("1") - 1, 0) for v in vals]
+
+
+def chain_counts(k):
+    """(doubles, adds, the longest chain's product levels: 3 a double, 5 an
+    add) of K3's chain entry on the plain scalars k."""
+    dbls, adds = chain_steps(k)
+    return sum(dbls), sum(adds), max(3 * d + 5 * a for d, a in zip(dbls, adds))
+
+
+def host_ms(fn):
+    """(ms per call or batch, mean of 3, and the three runs): host clock
+    around synchronised calls."""
+    import torch
+
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sum(runs) / 3, runs
+
+
+def scalar_ints_dot(ks, s) -> int:
+    """sum_i k_i s_i for u64 k (n,) < 2^63 and (n, 16) half-limb s, exact:
+    16-bit pieces of both, one int64 matrix product (each sum < 2^52)."""
+    import numpy as np
+
+    k16 = np.stack([(ks >> np.uint64(16 * a)) & np.uint64(0xFFFF) for a in range(4)], axis=1).astype(np.int64)
+    m = k16.T @ s.astype(np.int64)  # (4, 16)
+    return sum(int(m[a, b]) << (16 * (a + b)) for a in range(4) for b in range(16))
+
+
+def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: float) -> None:
+    """Phase 4g: G2 on the card (the MSM at 2^log_n, the batch, scalar
+    multiplication, the EC-FFT, a commit, and K3's Fq2 instances against
+    their plain versions)."""
+    import numpy as np
+    import torch
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.curves.params import BLS12_381_G2, BN254_G2
+    from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR
+    from tpu_ec_torch.kernels.point import (ec_fft_stage, ec_fft_stage_plain, horner, horner_plain, point_op,
+                                            point_op_plain, point_scalar_mul, scalar_mul_plain)
+    from tpu_ec_torch.native import native_curve, native_field
+    from tpu_ec_torch.ops.ec_fft import EcFftKernel
+    from tpu_ec_torch.ops.msm import SCALAR_BITS, MultiexpKernel, make_digits
+    from tpu_ec_torch.ops.msm_scan import (_fused_add, _unfuse, bucket_tail, default_window_size_scan, scan_buckets,
+                                           scan_round, sorted_rows)
+    from tpu_ec_torch.ops.pipeline import CommitPipeline
+
+    t_g2 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)  # its own seed: the other phases' inputs stay the parent's
+    n = 1 << log_n
+    nc, nc_bn = native_curve(BLS12_381_G2), native_curve(BN254_G2)
+    nfr, nfr_bn = native_field(BLS12_381_FR), native_field(BN254_FR)
+    L2 = 2 * BLS12_381_FQ.n_limbs  # a G2 coordinate: 48 half-limbs (BLS12-381), 32 (BN254)
+    imad12, imad8 = mont_imads(12), mont_imads(8)
+
+    # the main path: MultiexpKernel(BLS12_381_G2).multiexp, "auto", at 2^log_n
+    t0 = time.perf_counter()
+    G = nc.affine_from_points([(BLS12_381_G2.gen_x, BLS12_381_G2.gen_y)])
+    ks = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    k4 = np.zeros((n, 4), dtype=np.uint64)
+    k4[:, 0] = ks
+    jac = nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), k4)
+    aff = nc.to_affine(jac)
+    scal_np = random_field(rng, BLS12_381_FR, n)  # plain Fr integers, rows 0-2: 0, 1, r - 1
+    t_in = time.perf_counter() - t0
+    msm = MultiexpKernel(BLS12_381_G2)
+    ops = msm.ops
+    bases = msm.upload_bases(coords_from_u64(nc, aff, 2, dev))
+    scal = torch.as_tensor(scal_np).to(dev, torch.int32)
+    chunk = msm.chunk_size
+    chunks = -(-n // chunk)
+    m = min(n, chunk)
+    w = default_window_size_scan(m)
+    got = on_path(kernels, report, ("point_fp2", "point_horner_fp2"), f"G2 MSM 2^{log_n}",
+                  lambda: msm.multiexp(bases, scal))
+    counts = kernels.launch_counters()
+    # K3 launches of the scan engine: the segmented scan's rounds, the prefix
+    # scan and the tree of the tail, one Horner, a chunk; one add a further chunk
+    want_k3 = chunks * ((m - 1).bit_length() + 2 * (w - 1) + 1) + chunks - 1
+    if counts["point_fp2"] != want_k3 or counts["point_horner_fp2"] != chunks or counts["point"]:
+        raise SystemExit(f"G2 MSM: K3 launches {counts}; the scan engine predicts {want_k3} Fq2 launches, "
+                         f"{chunks} of them the Horner's, and no G1 launch")
+    t0 = time.perf_counter()
+    total = scalar_ints_dot(ks, scal_np) % BLS12_381_G2.scalar.modulus
+    want = nc.to_affine(nc.scalar_mul(G, nc.scalars_from_ints([total])))
+    if not np.array_equal(native_affine(nc, got), want):
+        raise SystemExit(f"G2 MSM 2^{log_n}: the commitment is not (sum k_i s_i) G2")
+    t_ref = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ms, runs = host_ms(lambda: msm.multiexp(bases, scal))
+    peak = torch.cuda.max_memory_allocated()
+    model = 10 * 20 * L2 * 4 * m  # calc_chunk_size's working set of a chunk
+    print(f"G2 MSM BLS12-381 2^{log_n} ('auto' = scan: {counts['point_fp2']} Fq2 K3 launches, the rounds predict "
+          f"{want_k3}, {counts['point_horner_fp2']} Horner, 0 G1): == (sum k_i s_i) G2 (one native scalar mul, "
+          f"{t_ref:.1f} s; inputs {t_in:.1f} s of native scalar mul + to_affine); {ms:.1f} ms mean of 3 "
+          f"({', '.join(f'{t:.1f}' for t in runs)}), {n / ms * 1e3:.0f} points/s; w = {w}, "
+          f"{-(-SCALAR_BITS // w)} windows, {chunks} chunk(s) of {m}; peak {peak / 2**30:.2f} GiB (the chunk "
+          f"model's working set {model / 2**30:.2f} GiB) | {card}", flush=True)
+
+    split, busy, others = traced(lambda: msm.multiexp(bases, scal), "G2 MSM")
+    k3_ms = sum(v[0] for k, v in split.items() if k.startswith("K3"))
+    parts = ", ".join(f"{k} {v[0]:.4f} ms in {v[1]}" for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]))
+    print(f"profile G2 MSM 2^{log_n}: device busy {busy:.4f} ms, K3 {k3_ms:.4f} ms; hand kernels {parts}; largest "
+          f"other device ops: " + "; ".join(f"{name[:60]} {t:.4f} ms in {cnt}" for name, t, cnt in others)
+          + f" | {card}", flush=True)
+
+    # the main path's first chunk: its signed digits, (1, W, m)
+    half = 1 << (w - 1)
+    sc = torch.cat([scal[:m], scal.new_zeros((m, 1))], dim=1)
+    dig = make_digits(sc, w, -(-SCALAR_BITS // w), True).T.unsqueeze(0)
+    pts = tuple(c[:m].unsqueeze(0) for c in bases)
+
+    # K3's Fq2 add at the main path's shape: round 0 of the segmented scan,
+    # the fused (W, m, 3 L2) block of the path's own sorted rows, each added
+    # to the row before it unless kept (keep, out=, column views of row
+    # stride 3 L2), against the plain version in chunks of 2^16 rows (its
+    # temporaries: ~125 KB a row, as measured on the CPU)
+    key, data = sorted_rows(ops, pts, dig)
+    partner, keep = scan_round(data, key, 1)
+    del key
+    run_r0 = lambda: _fused_add(ops, data, partner, L2, keep=keep)
+    r0_ms = cuda_ms(run_r0)
+    got = run_r0().view(-1, 3 * L2)
+    a_rows, b_rows, k_rows = data.view(-1, 3 * L2), partner.view(-1, 3 * L2), keep.reshape(-1)
+    bad = err = 0
+    r0_plain = 0.0
+    for lo in range(0, a_rows.shape[0], 1 << 16):
+        sl = slice(lo, lo + (1 << 16))
+        want, t = cuda_ms_once(lambda: point_op_plain(
+            BLS12_381_FQ, "add", [*_unfuse(a_rows[sl], L2, 3), *_unfuse(b_rows[sl], L2, 3)], k_rows[sl], ext=2))
+        r0_plain += t
+        b_, e_ = mismatch(_unfuse(got[sl], L2, 3), want)
+        bad, err = bad + b_, max(err, e_)
+    z_nonzero = lambda rows: (rows[:, 2 * L2 :] != 0).any(-1)
+    adding = int((~k_rows & z_nonzero(a_rows) & z_nonzero(b_rows)).sum())
+    r0_rows = a_rows.shape[0]
+    report.measured("point_fp2", ms=r0_ms, plain_ms=r0_plain, err=err, nbytes=r0_rows * (9 * L2 * 4 + 1),
+                    imads=adding * FP2_PRODUCTS["add"] * imad12)
+    print(f"K3 add fp2 at the main path's scan round 0 {tuple(data.shape)} keep + out=: mismatches {bad}, kernel "
+          f"{r0_ms:.3f} ms, plain {r0_plain:.3f} ms", flush=True)
+    if bad:
+        raise SystemExit(f"K3 add fp2 scan round 0: the kernel disagrees with its plain version on {bad} rows")
+    b_ms = report.rows["point_fp2"]["bound_ms"]
+    print(f"K3 add fp2 scan round 0: {r0_ms:.4f} ms, bound {b_ms:.4f} ms ({adding} adding rows of {r0_rows} x 43 Fq "
+          f"products x {imad12} IMADs; {report.rows['point_fp2']['bound_by']}), ms / bound {r0_ms / b_ms:.2f} "
+          f"| {card}", flush=True)
+    del data, partner, keep, got, a_rows, b_rows, k_rows, want
+
+    # the Horner at the main path's own window sums (the first chunk's)
+    tri = bucket_tail(ops, scan_buckets(ops, pts, dig, half=half), half)
+    S = _unfuse(tri[0], L2, 3)
+    del dig, tri, pts
+    want_h, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, w, ext=2))
+    h_ms = cuda_ms(lambda: horner(BLS12_381_FQ, S, w, ext=2))
+    levels, prods = horner_work(S, w, FP2_PRODUCTS)
+    check("point_horner_fp2", f"K3 horner fp2 ({S[0].shape[0]}, {L2}) w={w}", horner(BLS12_381_FQ, S, w, ext=2),
+          want_h, h_ms, p_ms, nbytes=(S[0].shape[0] + 1) * 3 * L2 * 4, imads=prods * imad12,
+          serial_ms=levels * lat[12])
+    hb = report.rows["point_horner_fp2"]["bound_ms"]
+    print(f"K3 horner fp2: {h_ms:.4f} ms, bound {hb:.4f} ms (operations in series: {levels} product levels x "
+          f"{lat[12] * 1e3:.4f} us; {prods} Fq products), ms / bound {h_ms / hb:.2f} | {card}", flush=True)
+    del S, want_h
+
+    # 2^16 against the native Pippenger, both curves (the BLS12-381 bases
+    # and scalars are the main path's first 2^16)
+    n16 = min(n // 2, 1 << 16)
+    for curve, ncv, nfv, fr, b, s_np in (
+        (BLS12_381_G2, nc, nfr, BLS12_381_FR, bases, scal_np),
+        (BN254_G2, nc_bn, nfr_bn, BN254_FR, None, None),
+    ):
+        if b is None:
+            _, aff_c = random_points(ncv, rng, n16)
+            b, s_np = coords_from_u64(ncv, aff_c, 2, dev), random_field(rng, fr, n16)
+        else:
+            aff_c = aff
+        kern = msm if curve is BLS12_381_G2 else MultiexpKernel(curve)
+        got = kern.multiexp(tuple(c[:n16] for c in b), torch.as_tensor(s_np[:n16]).to(dev, torch.int32))
+        want = ncv.msm(aff_c[:n16], nfv.from_halflimbs(s_np[:n16].astype(np.uint64)))
+        if not np.array_equal(native_affine(ncv, got), ncv.to_affine(want[None, :])):
+            raise SystemExit(f"G2 MSM {curve.name} 2^16 disagrees with the native Pippenger MSM")
+        ms16, _ = host_ms(lambda: kern.multiexp(tuple(c[:n16] for c in b),
+                                                torch.as_tensor(s_np[:n16]).to(dev, torch.int32)))
+        print(f"G2 MSM {curve.name} 2^{n16.bit_length() - 1}: == native Pippenger; {ms16:.2f} ms mean of 3 "
+              f"| {card}", flush=True)
+
+    # the batch: multiple_multiexp, 2^6 chunks x 2^10, every chunk against native
+    nb = 1 << 10
+    cb = min(64, n // nb)
+    bs = random_field(rng, BLS12_381_FR, cb * nb)
+    run_b = lambda: msm.multiple_multiexp(tuple(c[: cb * nb] for c in bases), torch.as_tensor(bs).to(dev, torch.int32),
+                                          cb)
+    out_b = run_b()
+    s_u64 = nfr.from_halflimbs(bs.astype(np.uint64))
+    want = np.stack([nc.msm(aff[c * nb : (c + 1) * nb], s_u64[c * nb : (c + 1) * nb]) for c in range(cb)])
+    bad = int((native_affine(nc, out_b) != nc.to_affine(want)).any(axis=1).sum())
+    if bad:
+        raise SystemExit(f"G2 batch: {bad} of {cb} chunks disagree with the native Pippenger MSM")
+    ms_b, runs_b = host_ms(run_b)
+    print(f"G2 batch BLS12-381 {cb} x 2^10 (scan): every chunk == native Pippenger; {ms_b:.2f} ms mean of 3 "
+          f"({', '.join(f'{t:.2f}' for t in runs_b)}), {cb * nb / ms_b * 1e3:.0f} points/s | {card}", flush=True)
+
+    # K3's Fq2 point ops on 2^16 rows: 0 P = identity, 1 Q = A = identity,
+    # 2 Q == P (other z) and A == P, 3 Q == -P and A == -P, 4 x = p - 1
+    P = [c.clone() for c in coords_from_u64(nc, jac[:n16], 3, dev)]
+    Q = [c.clone() for c in coords_from_u64(nc, jac[n16 : 2 * n16], 3, dev)]
+    A = [c[n16 : 2 * n16].clone() for c in bases]
+    PA = [c[:n16] for c in bases]
+    for c in P:
+        c[0] = 0
+    for c in (*Q, *A):
+        c[1] = 0
+    F, lam = ops.F, ops.F.from_ints([(5, 7)])
+    lam2 = F.sqr(lam)
+    for c, v in zip(Q, (F.mul(P[0][2:3], lam2), F.mul(P[1][2:3], F.mul(lam, lam2)), F.mul(P[2][2:3], lam))):
+        c[2] = v[0]  # row 2: P's point, its z scaled by lam
+    A[0][2], A[1][2] = PA[0][2], PA[1][2]
+    Q[0][3], Q[2][3], Q[1][3] = P[0][3], P[2][3], ops.F.neg(P[1][3:4])[0]
+    A[0][3], A[1][3] = PA[0][3], ops.F.neg(PA[1][3:4])[0]
+    pm1 = torch.tensor([((BLS12_381_FQ.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(L2 // 2)] * 2,
+                       dtype=torch.int32, device=dev)
+    P[0][4] = pm1
+    adding = {"add": int(((P[2] != 0).any(-1) & (Q[2] != 0).any(-1)).sum()),
+              "add_mixed": int(((P[2] != 0).any(-1) & ((A[0] != 0) | (A[1] != 0)).any(-1)).sum()),
+              "double": n16}
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("double", [*P])):
+        plain = lambda: chunked(lambda *c: point_op_plain(BLS12_381_FQ, op, list(c), ext=2), *ins, rows=1 << 16)
+        want, p_ms = cuda_ms_once(plain)
+        k_ms = cuda_ms(lambda: point_op(BLS12_381_FQ, op, ins, ext=2))
+        check("point_fp2", f"K3 {op} fp2 n={n16}", point_op(BLS12_381_FQ, op, ins, ext=2), want, k_ms, p_ms)
+        t_ops = adding[op] * FP2_PRODUCTS[op] * imad12 / imad_rate * 1e3
+        print(f"K3 {op} fp2 n={n16}: {k_ms:.4f} ms, operations bound {t_ops:.4f} ms ({adding[op]} adding rows x "
+              f"{FP2_PRODUCTS[op]} Fq products x {imad12} IMADs), ms / bound {k_ms / t_ops:.2f} | {card}", flush=True)
+    keep = torch.zeros(n16, dtype=torch.bool, device=dev)
+    keep[::3] = True
+    fused = torch.empty((n16, 3 * L2), dtype=torch.int32, device=dev)
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("add_mixed", [*PA, *A])):
+        kern = lambda: point_op(BLS12_381_FQ, op, ins, keep=keep, out=fused, ext=2)
+        plain = lambda: chunked(lambda kk, *c: point_op_plain(BLS12_381_FQ, op, list(c), kk, ext=2), keep, *ins,
+                                rows=1 << 16)
+        want, p_ms = cuda_ms_once(plain)
+        check("point_fp2", f"K3 {op} fp2{' (P affine)' if len(ins) == 4 else ''} keep + out= n={n16}",
+              tuple(c.clone() for c in kern()), want, cuda_ms(kern), p_ms)
+    del P, Q, A, PA, fused, want
+
+    # scalar multiplication: 1024 points, random scalars (rows 0-2: 0, 1, r - 1)
+    h = 1024
+    P1k = coords_from_u64(nc, jac[:h], 3, dev)
+    k1k_np = random_field(rng, BLS12_381_FR, h)
+    k1k = torch.as_tensor(k1k_np).to(dev, torch.int32)
+    got = on_path(kernels, report, ("point_scalar_mul_fp2",), "G2 scalar_mul", lambda: ops.scalar_mul(P1k, k1k))
+    want = nc.to_affine(nc.scalar_mul(aff[:h], nfr.from_halflimbs(k1k_np.astype(np.uint64))))
+    if not np.array_equal(native_affine(nc, got), want):
+        raise SystemExit("G2 scalar_mul disagrees with the native scalar multiplication")
+    want_p, p_ms = cuda_ms_once(lambda: scalar_mul_plain(BLS12_381_FQ, P1k, k1k, ext=2))
+    c_ms = cuda_ms(lambda: point_scalar_mul(BLS12_381_FQ, P1k, k1k, ext=2))
+    dbls, adds, longest = chain_counts(k1k)
+    prods = FP2_PRODUCTS["double"] * dbls + FP2_PRODUCTS["add"] * adds
+    check("point_scalar_mul_fp2", f"K3 scalar_mul chain fp2 ({h}, {L2}), {dbls + adds} point ops", got, want_p, c_ms,
+          p_ms, nbytes=(h * 6 * L2 + h * 16) * 4, imads=prods * imad12)
+    cb_ = report.rows["point_scalar_mul_fp2"]["bound_ms"]
+    serial = longest * lat[12]
+    print(f"K3 scalar_mul chain fp2: == native; {c_ms:.4f} ms, bound {cb_:.4f} ms (operations), ms / bound "
+          f"{c_ms / cb_:.1f}; serial bound {serial:.4f} ms (the longest chain's {longest} product levels, 3 a "
+          f"double and 5 an add, x {lat[12] * 1e3:.4f} us), ms / serial {c_ms / serial:.2f} | {card}", flush=True)
+    del want_p, got, P1k
+
+    # the EC-FFT at 2^11, both curves, forward and inverse
+    lg = min(11, log_n)
+    for curve, ncv, fq in ((BN254_G2, nc_bn, BN254_FQ), (BLS12_381_G2, nc, BLS12_381_FQ)):
+        jac_e, _ = random_points(ncv, rng, 1 << lg)
+        Pe = coords_from_u64(ncv, jac_e, 3, dev)
+        kern = EcFftKernel(curve)
+        run = lambda: kern.radix_ec_fft(Pe)
+        out = on_path(kernels, report if curve is BN254_G2 else None, ("ec_fft_stage_fp2",),
+                      f"G2 EC-FFT {curve.name} 2^{lg}", run)
+        if kernels.launch_counters()["ec_fft_stage_fp2"] != lg:
+            raise SystemExit(f"G2 EC-FFT 2^{lg}: not one stage launch a stage")
+        if not np.array_equal(native_affine(ncv, out), ncv.to_affine(ncv.ec_fft(jac_e))):
+            raise SystemExit(f"G2 EC-FFT {curve.name} 2^{lg} disagrees with the native EC-FFT")
+        back = on_path(kernels, None, ("ec_fft_stage_fp2", "point_scalar_mul_fp2"), f"G2 EC-FFT inverse {curve.name}",
+                       lambda: kern.radix_ec_fft(out, inverse=True))
+        if not np.array_equal(native_affine(ncv, back), native_affine(ncv, Pe)):
+            raise SystemExit(f"G2 EC-FFT {curve.name} 2^{lg}: the inverse does not give its input back")
+        ms_f, runs_f = host_ms(run)
+        ms_i, _ = host_ms(lambda: kern.radix_ec_fft(out, inverse=True))
+        print(f"G2 EC-FFT {curve.name} 2^{lg}: == native EC-FFT, inverse == input; forward {ms_f:.2f} ms mean of 3 "
+              f"({', '.join(f'{t:.2f}' for t in runs_f)}), {(1 << lg) / ms_f * 1e3:.0f} points/s; inverse "
+              f"{ms_i:.2f} ms | {card}", flush=True)
+        if curve is BN254_G2:
+            tw = kern._domain_tensors(lg, False)[0]
+            hh = 1 << (lg - 1)
+            want, p_ms = cuda_ms_once(lambda: ec_fft_stage_plain(fq, Pe, tw, 0, ext=2))
+            s_ms = cuda_ms(lambda: ec_fft_stage(fq, Pe, tw, 0, ext=2))
+            dbls, adds, longest = chain_counts(tw)
+            prods = FP2_PRODUCTS["double"] * dbls + FP2_PRODUCTS["add"] * (adds + 2 * hh)
+            check("ec_fft_stage_fp2", f"K3 ec_fft_stage fp2 stage 0 ({1 << lg}, {2 * fq.n_limbs}), {hh} butterflies",
+                  ec_fft_stage(fq, Pe, tw, 0, ext=2), want, s_ms, p_ms,
+                  nbytes=hh * (12 * 2 * fq.n_limbs + 16) * 4, imads=prods * imad8)
+            sb = report.rows["ec_fft_stage_fp2"]["bound_ms"]
+            serial = (10 + longest) * lat[8]
+            print(f"K3 ec_fft_stage fp2: {s_ms:.4f} ms, bound {sb:.4f} ms (operations), ms / bound {s_ms / sb:.1f}; "
+                  f"serial bound {serial:.4f} ms (an add, a sub and the longest chain: 10 + {longest} product levels "
+                  f"x {lat[8] * 1e3:.4f} us), ms / serial {s_ms / serial:.2f} | {card}", flush=True)
+            del want
+
+    # a G2 commit at 2^16: NTT -> from_mont -> the scan MSM
+    pipe = CommitPipeline(BLS12_381_G2)
+    coeffs_np = random_field(rng, BLS12_381_FR, n16)
+    coeffs = torch.as_tensor(coeffs_np).to(dev, torch.int32)
+    cb16 = tuple(c[:n16] for c in bases)
+    evals, com = on_path(kernels, None, ("mont_mul", "inter_twiddle", "point_fp2", "point_horner_fp2"),
+                         f"G2 commit 2^{n16.bit_length() - 1}",
+                         lambda: pipe.commit(coeffs, cb16))
+    want_e = nfr.ntt(nfr.from_halflimbs(coeffs_np.astype(np.uint64)))
+    if not np.array_equal(nfr.from_halflimbs(evals.cpu().numpy().astype(np.uint64)), want_e):
+        raise SystemExit("G2 commit: the evaluations disagree with the native NTT")
+    if not np.array_equal(native_affine(nc, com), nc.to_affine(nc.msm(aff[:n16], nfr.from_mont(want_e))[None, :])):
+        raise SystemExit("G2 commit: the commitment disagrees with the native Pippenger MSM")
+    ms_c, runs_c = host_ms(lambda: pipe.commit(coeffs, cb16))
+    print(f"G2 commit BLS12-381 2^{n16.bit_length() - 1}: evaluations == native NTT, commitment == native Pippenger; {ms_c:.2f} ms mean "
+          f"of 3 ({', '.join(f'{t:.2f}' for t in runs_c)}) | {card}", flush=True)
+    print(f"phase 4g: {time.perf_counter() - t_g2:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1066,18 +1440,6 @@ def main() -> int:
         if bad:
             raise SystemExit(f"{label}: {bad} of {len(chunks)} chunks disagree with the native Pippenger MSM")
 
-    def amt_ms(fn):
-        """(ms per batch, mean of 3, and the three runs): host clock around
-        synchronised calls."""
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
-        return sum(runs) / 3, runs
-
     slab_a = batch_slab(BLS12_381_G1, "pair", chunk, wb, dev)
     slab_a = min(slab_a, c_a)
     run_a = lambda: msm.multiple_multiexp(bases, scal_a, c_a)
@@ -1094,7 +1456,7 @@ def main() -> int:
     native_chunks(bases_aff, scal_a_np, list(range(c_a)), out_a, "AMT batch A")
     t_native_a = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    ms_a, runs_a = amt_ms(run_a)
+    ms_a, runs_a = host_ms(run_a)
     peak_a = torch.cuda.max_memory_allocated()
     print(f"AMT batch A 2^{log_chunk} x {c_a} (w = {wb}, {nwin_b} windows): all {c_a} chunks == native Pippenger "
           f"({t_native_a:.1f} s of host referee); {ms_a:.2f} ms per batch mean of 3 "
@@ -1112,7 +1474,7 @@ def main() -> int:
     sample = [0, *sorted(rng.choice(np.arange(1, c_b - 1), size=min(62, c_b - 2), replace=False).tolist()), c_b - 1]
     native_chunks(bases_aff, scal_b_np, sample, out_b, "AMT batch B")
     torch.cuda.reset_peak_memory_stats()
-    ms_b, runs_b = amt_ms(run_b)
+    ms_b, runs_b = host_ms(run_b)
     peak_b = torch.cuda.max_memory_allocated()
     print(f"AMT batch B 2^{log_chunk} x {c_b} (bases tiled 4x): {len(sample)} sampled chunks (first and last "
           f"included) == native Pippenger; {ms_b:.2f} ms per batch mean of 3 "
@@ -1173,11 +1535,6 @@ def main() -> int:
     lg_ec = min(11, args.log_n)  # the reference's largest bench degree
     n_ec = 1 << lg_ec
 
-    def native_affine(ncv, P):
-        """Port Jacobian coordinates -> native affine (n, 2w) u64."""
-        return ncv.to_affine(np.concatenate([ncv.fq.from_halflimbs(c.cpu().numpy().astype(np.uint64)) for c in P],
-                                            axis=1))
-
     def ec_fft_sizes(curve, ncv, log_ns):
         """The forward EC-FFT at each 2^lg, every output against the native
         EC-FFT; the 2^lg_ec run is the path's, its launches counted.
@@ -1198,7 +1555,7 @@ def main() -> int:
             t_ref = time.perf_counter() - t0
             if bad:
                 raise SystemExit(f"EC-FFT {curve.name} 2^{lg}: {bad} of {m} outputs disagree with the native EC-FFT")
-            ms, runs = amt_ms(run)
+            ms, runs = host_ms(run)
             print(f"EC-FFT {curve.name} 2^{lg}: all {m} outputs == native EC-FFT ({t_ref:.1f} s of host referee); "
                   f"{ms:.3f} ms mean of 3 ({', '.join(f'{t:.3f}' for t in runs)}), {m / ms * 1e3:.0f} points/s "
                   f"| {card}", flush=True)
@@ -1214,7 +1571,7 @@ def main() -> int:
     report.launches["point_scalar_mul"] = inv_counts["point_scalar_mul"]
     if not np.array_equal(native_affine(nc_bn, back), native_affine(nc_bn, P_bn)):
         raise SystemExit(f"EC-FFT inverse 2^{lg_ec} does not give its input back")
-    inv_ms, inv_runs = amt_ms(lambda: kern_bn.radix_ec_fft(out_bn, inverse=True))
+    inv_ms, inv_runs = host_ms(lambda: kern_bn.radix_ec_fft(out_bn, inverse=True))
     print(f"EC-FFT {BN254_G1.name} inverse 2^{lg_ec}: == input; {inv_ms:.3f} ms mean of 3 "
           f"({', '.join(f'{t:.3f}' for t in inv_runs)}) | {card}", flush=True)
 
@@ -1224,8 +1581,8 @@ def main() -> int:
     singles = [kern_bn.radix_ec_fft(P) for P in many_in]
     if not all(all(torch.equal(a, b) for a, b in zip(g, w)) for g, w in zip(many_out, singles)):
         raise SystemExit("radix_ec_fft_many disagrees with single calls")
-    many_ms, many_runs = amt_ms(lambda: kern_bn.radix_ec_fft_many(many_in))
-    single_ms, _ = amt_ms(lambda: [kern_bn.radix_ec_fft(P) for P in many_in])
+    many_ms, many_runs = host_ms(lambda: kern_bn.radix_ec_fft_many(many_in))
+    single_ms, _ = host_ms(lambda: [kern_bn.radix_ec_fft(P) for P in many_in])
     print(f"radix_ec_fft_many 16 x 2^{lg_ec} BN254: each == its single call; {many_ms:.3f} ms mean of 3 "
           f"({', '.join(f'{t:.3f}' for t in many_runs)}), {16 * n_ec / many_ms * 1e3:.0f} points/s; 16 single "
           f"calls {single_ms:.3f} ms | {card}", flush=True)
@@ -1233,13 +1590,10 @@ def main() -> int:
 
     def chain_work(k):
         """(point ops, field products) of the chains on the plain scalars k
-        (n, 16): a double a bit below the top set bit, an add a set bit below
-        it; and the longest chain's point ops."""
-        kn = k.cpu().numpy().astype(np.int64)
-        vals = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in kn]
-        dbls = [max(v.bit_length() - 1, 0) for v in vals]
-        adds = [max(bin(v).count("1") - 1, 0) for v in vals]
-        return sum(dbls) + sum(adds), 7 * sum(dbls) + 16 * sum(adds), max(d + a for d, a in zip(dbls, adds))
+        (n, 16) (``chain_steps``), and the longest chain's point ops."""
+        dbls, adds = chain_steps(k)
+        prods = FQ_PRODUCTS["double"] * sum(dbls) + FQ_PRODUCTS["add"] * sum(adds)
+        return sum(dbls) + sum(adds), prods, max(d + a for d, a in zip(dbls, adds))
 
     def op_latency(spec, P):
         """Device ms of one point op in series: a one-point chain over 2^256 - 1
@@ -1390,19 +1744,23 @@ def main() -> int:
         if not np.array_equal(affine_to_u64(nc, pipe.ops.to_affine(got)), nc.to_affine(nc.msm(aff, scal)[None, :])):
             raise SystemExit(f"{label} disagrees with the native Pippenger MSM")
         t_ref = time.perf_counter() - t0
-        ms, runs = amt_ms(run)
+        ms, runs = host_ms(run)
         print(f"{label} 2^{args.log_n} ({len(scal)} terms): == native Pippenger ({t_ref:.1f} s of host referee); "
               f"{ms:.2f} ms mean of 3 ({', '.join(f'{t:.2f}' for t in runs)}) | {card}", flush=True)
     # the sparse commit's parts: the compaction (host mask, gathers) and the
     # MSM of the compacted terms
     pscal = pipe.fr.from_mont(coeffs)
-    compact_ms, _ = amt_ms(lambda: compact_by_density(dens, bases, pscal))
+    compact_ms, _ = host_ms(lambda: compact_by_density(dens, bases, pscal))
     cb, cs_ = compact_by_density(dens, bases, pscal)
-    msm_ms, _ = amt_ms(lambda: msm.multiexp(cb, cs_))
+    msm_ms, _ = host_ms(lambda: msm.multiexp(cb, cs_))
     print(f"commit_sparse parts: compaction {compact_ms:.2f} ms, MSM of the {cs_.shape[0]} terms {msm_ms:.2f} ms "
           f"| {card}", flush=True)
     del cb, cs_, pscal
     print(f"phase 4f: {time.perf_counter() - t_ec:.1f} s", flush=True)
+
+    # 4g. G2: the MSM (the main path of G2), the batch, scalar multiplication,
+    # the EC-FFT, a commit and K3's Fq2 instances
+    phase_g2(args.log_n, dev, report, check, card, lat, imad_rate)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

@@ -78,7 +78,8 @@ def _points(ops, n):
 def _point_rows(ops, n=40):
     """P, Q (Jacobian) and A (affine) with the select tree's rows: 0 P =
     identity, 1 Q = A = identity, 2 Q == P and A == P, 3 Q == -P and
-    A == -P, 4 both identity, 5 coordinates 0 and p - 1 (no curve point)."""
+    A == -P, 4 both identity, 5 coordinates 0 and p - 1 (no curve point;
+    on G2 p - 1 in both components)."""
     A, P = _points(ops, n)
     A2, Q = _points(ops, n + 1)
     A2 = [c[1:].clone() for c in A2]
@@ -102,7 +103,7 @@ def _point_rows(ops, n=40):
     Q[0][3], Q[2][3] = P[0][3], P[2][3]
     A2[0][3] = PA[0][1]
     A2[1][3] = ops.F.neg(PA[1][1:2])[0]
-    pm1 = torch.tensor([((ops.spec.base.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(ops.L)],
+    pm1 = torch.tensor([((ops.spec.base.modulus - 1) >> (16 * i)) & 0xFFFF for i in range(ops.L)] * ops.spec.ext,
                        dtype=torch.int32, device=P[0].device)
     P[0][5], P[1][5], P[2][5] = pm1, 0, pm1
     Q[0][5], Q[1][5], Q[2][5] = 0, pm1, pm1
@@ -665,3 +666,163 @@ def test_sparse_and_coefficient_commits_match_native(cuda):
     idx = np.nonzero(dens.generate_mask(n))[0]
     got = affine_u64(pipe.commit_sparse(c, bases, dens, skip=skip))
     assert np.array_equal(got, nc.to_affine(nc.msm(aff[idx + skip], scal[idx])[None, :]))
+
+
+# -- G2: K3's Fq2 instances ---------------------------------------------------
+
+G2_CURVES = ["BLS12_381_G2", "BN254_G2"]
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_point_kernel_matches_plain(cuda, curve):
+    """The Fq2 point kernel == its plain version with every edge row of
+    _point_rows, also with keep + out= (fused rows) and P affine; the
+    launches count as Fq2 launches, not G1 ones."""
+    from tpu_ec_torch import curves, kernels
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, Q, A = _point_rows(ops)
+    n, L = P[0].shape[0], ops.width
+    keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+    keep[::3] = True
+    kernels.reset_launch_counters()
+    for op, ins in (("add", [*P, *Q]), ("add_mixed", [*P, *A]), ("double", [*P]), ("add_mixed", [*P[:2], *A])):
+        got, want = point_op(spec.base, op, ins, ext=2), point_op_plain(spec.base, op, ins, ext=2)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (op, len(ins))
+        if op != "double":
+            fused = torch.full((n, 3 * L), -1, dtype=torch.int32, device=cuda)
+            got = point_op(spec.base, op, ins, keep=keep, out=fused, ext=2)
+            want = point_op_plain(spec.base, op, ins, keep, ext=2)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (op, "keep")
+            assert torch.equal(fused, torch.cat(want, dim=1))
+    counts = kernels.launch_counters()
+    assert (counts["point_fp2"], counts["point"]) == (7, 0)
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_horner_kernel_matches_plain(cuda, curve):
+    """The Fq2 Horner entry == its plain loop with every edge of
+    _horner_edge_sums, C = 1 and 9, w = 0, 1 and 5."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import horner, horner_plain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    kinds = ("same", "cancel", "garbage", "zero", "top", "random")
+    for w in (0, 1, 5):
+        for C in (1, 9):
+            S = _horner_edge_sums(ops, C, w, kinds)
+            got = horner(spec.base, S, w, ext=2)
+            assert got[0].shape == (C, ops.width)
+            assert all(torch.equal(g, h) for g, h in zip(got, horner_plain(spec.base, S, w, ext=2))), (w, C)
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_scalar_mul_kernel_matches_plain(cuda, curve):
+    """The Fq2 chain entry == the plain 256-step loop: per-row scalars (0,
+    1, r - 1, 2^256 - 1, r + 2, ...) and one scalar for every row."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import point_scalar_mul, scalar_mul_plain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, k = _chain_rows(ops, cuda)
+    for kk in (k, k[6]):
+        got = point_scalar_mul(spec.base, P, kk, ext=2)
+        assert all(torch.equal(g, w) for g, w in zip(got, scalar_mul_plain(spec.base, P, kk, ext=2)))
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_ec_fft_stage_kernel_matches_plain(cuda, curve):
+    """The Fq2 EC-FFT stage entry == its plain version at every stage of two
+    transforms of 64 points, with a == b, a == -b and identity rows."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import ec_fft_stage, ec_fft_stage_plain
+    from tpu_ec_torch.ops.ec_fft import get_ec_domain
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    _, P = _points(ops, 128)
+    Y = [c.reshape(2, 64, -1).clone() for c in P]
+    negy = ops.F.neg(Y[1][1, 1:2])[0]
+    for c in Y:
+        c[0, 32] = c[0, 0]  # a == b
+        c[1, 33] = c[1, 1]
+        c[1, 2] = 0  # identity
+    Y[1][1, 33] = negy  # a == -b
+    tw = torch.as_tensor(get_ec_domain(spec, 6).twiddle_scalars.astype(np.int64)).to(cuda, torch.int32)
+    for s in range(6):
+        got, want = ec_fft_stage(spec.base, Y, tw, s, ext=2), ec_fft_stage_plain(spec.base, Y, tw, s, ext=2)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), s
+        Y = list(want)
+
+
+def _g2_native_points(nc, n, seed):
+    """n points k G2 with random 64-bit k (native), Jacobian and affine u64."""
+    rng = np.random.default_rng(seed)
+    ks = np.zeros((n, 4), dtype=np.uint64)
+    ks[:, 0] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    G = nc.affine_from_points([(nc.spec.gen_x, nc.spec.gen_y)])
+    jac = nc.scalar_mul(np.broadcast_to(G, (n, G.shape[1])).copy(), ks)
+    return jac, nc.to_affine(jac)
+
+
+def _to_port(nc, arr, k, cuda):
+    w = nc.w
+    return tuple(torch.as_tensor(nc.coord_to_halflimbs(arr[:, i * w : (i + 1) * w]).astype(np.int64))
+                 .to(cuda, torch.int32) for i in range(k))
+
+
+def _to_native(nc, coords):
+    return np.concatenate([nc.coord_from_halflimbs(c.cpu().numpy()) for c in coords], axis=1)
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_msm_and_batch_match_native(cuda, curve):
+    """multiexp "auto" on G2 runs the scan engine (Fq2 K3 launches, no G1
+    one) and == the native Pippenger at 2^10; multiple_multiexp, 4 chunks,
+    each chunk == native."""
+    from tpu_ec_torch import curves, kernels
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.msm import MultiexpKernel
+
+    spec = getattr(curves, curve)
+    nc = native_curve(spec)
+    n = 1 << 10
+    _, aff = _g2_native_points(nc, n, 32)
+    bases = _to_port(nc, aff, 2, cuda)
+    rng = np.random.default_rng(33)
+    s = rng.integers(0, 1 << 16, (n, 16), dtype=np.int64)
+    s[:, -1] &= 0x0FFF  # below r
+    s[0] = 0
+    kern = MultiexpKernel(spec, cuda)
+    kernels.reset_launch_counters()
+    got = kern.multiexp(bases, torch.as_tensor(s).to(cuda, torch.int32))
+    counts = kernels.launch_counters()
+    assert counts["point_fp2"] > 0 and counts["point_horner_fp2"] == 1 and counts["point"] == 0
+    s64 = nc.fr.from_halflimbs(s.astype(np.uint64))
+    assert np.array_equal(nc.to_affine(_to_native(nc, got)), nc.to_affine(nc.msm(aff, s64)[None, :]))
+    C = 4
+    out = kern.multiple_multiexp(bases, torch.as_tensor(s).to(cuda, torch.int32), C)
+    m = n // C
+    want = np.stack([nc.msm(aff[c * m : (c + 1) * m], s64[c * m : (c + 1) * m]) for c in range(C)])
+    assert np.array_equal(nc.to_affine(_to_native(nc, out)), nc.to_affine(want))
+
+
+def test_g2_ec_fft_matches_native(cuda):
+    """A 2^6 BN254 G2 EC-FFT on the card == the native EC-FFT (affine), and
+    its inverse gives the points back."""
+    from tpu_ec_torch.curves import BN254_G2
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.ec_fft import EcFftKernel
+
+    nc = native_curve(BN254_G2)
+    jac, _ = _g2_native_points(nc, 1 << 6, 34)
+    P = _to_port(nc, jac, 3, cuda)
+    kern = EcFftKernel(BN254_G2, cuda)
+    out = kern.radix_ec_fft(P)
+    assert np.array_equal(nc.to_affine(_to_native(nc, out)), nc.to_affine(nc.ec_fft(jac)))
+    back = kern.radix_ec_fft(out, inverse=True)
+    ops = kern.ops
+    assert all(torch.equal(a, b) for a, b in zip(ops.to_affine(back), ops.to_affine(P)))

@@ -64,3 +64,13 @@ def test_digit_domain_tables_equal(log_n, inverse):
 def test_digit_domain_refuses_chunked_sizes():
     with pytest.raises(NotImplementedError):
         tnd.DigitDomain(tfp.BLS12_381_FR, 25, False, 8)
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_G2", "BN254_G2"])
+def test_g2_curve_spec_equal(name):
+    j, t = getattr(jcp, name), getattr(tcp, name)
+    for attr in ("name", "ext", "b", "gen_x", "gen_y", "cofactor"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    assert t.ext == 2 and t.base.modulus == j.base.modulus and t.scalar.modulus == j.scalar.modulus
+    assert hash(t) == hash(j) and t in tcp.ALL_CURVES
+    assert [c.name for c in tcp.ALL_CURVES] == [c.name for c in jcp.ALL_CURVES]

@@ -2,9 +2,10 @@
 
 The same library surface as the JAX package ``tpu_ec`` (which stays the
 reference), rebuilt on PyTorch: Montgomery field arithmetic on 16-bit
-half-limbs, the Pease, digit-matmul and fused NTTs, G1 point arithmetic,
-batch-affine and co-Z point addition, the pair-halving and co-Z Pippenger
-MSM engines and the commit pipeline.  Every TPU (Pallas) kernel on the
+half-limbs and Fq2, the Pease, digit-matmul and fused NTTs, G1 and G2 point
+arithmetic, batch-affine and co-Z point addition, the pair-halving, co-Z
+and scan Pippenger MSM engines (G2 on the scan engine), the EC-group FFT
+and the commit pipeline.  Every TPU (Pallas) kernel on the
 ported path is a hand-written CUDA C++ kernel for sm_90a (``csrc/``), built
 at first use; on CPU tensors each kernel wrapper runs its plain PyTorch
 version.  The entry points run on the card (``device="cuda"``) unless the

@@ -2,8 +2,10 @@
 
 ``tpu_ec`` hands out numpy ``uint32 (n, L)`` arrays of 16-bit half-limbs;
 the port holds the same values as ``(n, L)`` tensors, int64 on the CPU and
-int32 on CUDA.  Only values cross, never device buffers: this module
-imports neither jax nor tpu_ec.
+int32 on CUDA.  An Fq2 value (a G2 coordinate) is a pair (c0, c1) of such
+arrays in tpu_ec and one ``(n, 2L)`` tensor, c0 then c1, in the port.  Only
+values cross, never device buffers: this module imports neither jax nor
+tpu_ec.
 """
 
 from __future__ import annotations
@@ -36,6 +38,29 @@ def points_to_torch(pts, device="cuda") -> tuple:
 
 def points_to_numpy(pts) -> tuple:
     return tuple(limbs_to_numpy(c) for c in pts)
+
+
+def fp2_to_torch(pair, device="cuda") -> torch.Tensor:
+    """tpu_ec Fq2 pair (c0, c1) of (..., L) half-limbs -> port (..., 2L) tensor."""
+    return torch.cat([limbs_to_torch(pair[0], device), limbs_to_torch(pair[1], device)], dim=-1)
+
+
+def fp2_to_numpy(t: torch.Tensor) -> tuple:
+    """Port (..., 2L) Fq2 tensor -> tpu_ec's (c0, c1) pair of uint32 arrays."""
+    a = limbs_to_numpy(t)
+    L = a.shape[-1] // 2
+    return (a[..., :L].copy(), a[..., L:].copy())
+
+
+def g2_points_to_torch(pts, device="cuda") -> tuple:
+    """tpu_ec G2 affine (x, y) (or Jacobian) of (c0, c1) pairs -> port tuple
+    of (..., 2L) tensors."""
+    return tuple(fp2_to_torch(c, device) for c in pts)
+
+
+def g2_points_to_numpy(pts) -> tuple:
+    """Port G2 coordinate tuple -> tpu_ec's tuple of (c0, c1) numpy pairs."""
+    return tuple(fp2_to_numpy(c) for c in pts)
 
 
 def ints_to_limbs(values, n_limbs: int, device="cuda") -> torch.Tensor:

@@ -1,0 +1,454 @@
+// K3's chain entries: the Horner window combine of the MSM, the scalar
+// multiplication [k] P and one EC-FFT stage, on the lane-tile field core
+// (field_tile.cuh).
+//
+// Replace tpu_ec/ops/pallas/point.py:_point_call_list (K3, with point.cu's
+// point_kernel for the batched point ops) where tpu_ec runs it in a chain:
+// the Horner combine (tpu_ec/ops/msm_pair.py:horner_combine, and for a batch
+// of MSMs tpu_ec/ops/msm_batch.py:horner_combine_batch: from the identity,
+// w doublings and one add a window, top window first), one tile a chunk;
+// PointOps.scalar_mul (tpu_ec/curves/point.py:334-351, 256 MSB-first
+// double-and-add steps), one tile a point; and one Pease stage of
+// tpu_ec/ops/ec_fft.py:_ec_fft_impl (u = a + b, v = [w^e](a - b)), one tile
+// a butterfly.  The formulas are point.cu's (dbl-2009-l, add-2007-bl with
+// the select tree of PointOps.add), the same products of the same operands,
+// and every value is canonical where it is tested or stored, so the
+// Jacobian outputs are bit-identical to tpu_ec's PointOps, not merely the
+// same points.
+//
+// Bound on the H100: the latency of one chain.  A chain is a series of
+// point ops (the commit's Horner ~270, an AMT chunk's ~300, a scalar
+// multiplication up to ~510), ~10 field products each; the card's IMAD rate
+// would run a 2^11 stage's 1024 chains in ~0.06 ms, but a chain takes its
+// ops' product latencies in series: at best its levels of products (below)
+// times one product's latency (tec_mul_chain measures that).
+//
+// Design.  A tile of kTile lanes runs each chain.  The formulas are
+// written in levels of independent products (3 a doubling, 5 an add), and
+// the lanes compute a level's products side by side, each with field.cuh's
+// one-thread product (field_tile.cuh TileProducts), so an op's critical
+// path is its levels, not its products.  Every lane holds every value and
+// runs the adds and subtracts, so each branch (identity, P == Q, the
+// scalar's bit, the chain's `same` flag) agrees across the tile.  Tiles of
+// consecutive butterflies share a warp, so from stage log2(32 / T) on the
+// tiles of a warp hold one scalar and the warp does not diverge either;
+// blocks of one warp spread a 2^11 stage, or an AMT slab's 1024 Horner
+// chains, over the SMs.  The rare P == Q doubling of the stage's adds runs
+// in a separate non-inlined function that reads P again; in the Horner and
+// the scalar multiplication it is the chain's next doubling.
+//
+// G1 and G2.  The formulas take the tile field as a type: TileProducts (Fq)
+// for G1, TileProducts2 (Fq2, a level of N products 3N Fq products across
+// the same 4 lanes) for G2.  The G1 instances are chain.cu's; the G2 ones
+// are g2_horner.cu's, g2_scalar_mul.cu's and g2_ec_fft_stage.cu's, one
+// compile each, so that the widest instances build side by side.
+#pragma once
+
+#include <type_traits>
+
+#include "field_tile.cuh"
+
+namespace {
+
+using tec::Fe;
+using tec::FieldConsts;
+
+// The lanes of a chain, for both word counts: the add's widest levels hold
+// 4 products, and 4 lanes ran fastest of the sizes timed (PERF.md).
+constexpr int kTile = 4;
+constexpr int kChainThreads = 32;  // one warp a block: a chain is serial, so spread them over the SMs
+constexpr int kScalarWords = 8;    // Fr of both curves: 256-bit plain scalars, 16 half-limbs
+
+// The tile field at ext 1 (Fq, G1) or 2 (Fq2, G2).
+template <int NW, int EXT>
+using Field = typename std::conditional<EXT == 1, tec::TileProducts<NW, kTile>,
+                                       tec::TileProducts2<NW, kTile>>::type;
+
+struct ChainArgs {
+  const int32_t* in[6];  // X Y Z of P (the stage: of the input, then of its output again)
+  long long in_stride[6];
+  int32_t* out[3];
+  long long out_stride;
+  long long n;  // points or butterflies, one tile each
+};
+
+// A point operand read from device memory at each use: coordinates k,
+// k + 1, k + 2 of the arguments at row i.
+template <class Fd>
+struct MemPoint {
+  using E = typename Fd::E;
+  const ChainArgs& a;
+  const Fd& f;
+  int k;
+  long long i;
+  __device__ __forceinline__ E at(int c) const { return f.load(a.in[k + c] + i * a.in_stride[k + c]); }
+  __device__ __forceinline__ E X() const { return at(0); }
+  __device__ __forceinline__ E Y() const { return at(1); }
+  __device__ __forceinline__ E Z() const { return at(2); }
+};
+
+// -Q of a point operand read from device memory (PointOps.sub's neg).
+template <class Fd>
+struct NegMemPoint {
+  using E = typename Fd::E;
+  MemPoint<Fd> q;
+  __device__ __forceinline__ E X() const { return q.X(); }
+  __device__ __forceinline__ E Y() const { return q.f.neg(q.Y()); }
+  __device__ __forceinline__ E Z() const { return q.Z(); }
+};
+
+// A point held in registers (the chain's accumulator).
+template <class Fd>
+struct RegPoint {
+  using E = typename Fd::E;
+  E x, y, z;
+  __device__ __forceinline__ E X() const { return x; }
+  __device__ __forceinline__ E Y() const { return y; }
+  __device__ __forceinline__ E Z() const { return z; }
+};
+
+// Where an op's result goes, one canonical coordinate at a time: device
+// memory (row i of the outputs) or registers.
+template <class Fd>
+struct MemOut {
+  using E = typename Fd::E;
+  const ChainArgs& a;
+  const Fd& f;
+  long long i;
+  __device__ __forceinline__ void X(const E& v) const { f.store(a.out[0] + i * a.out_stride, v); }
+  __device__ __forceinline__ void Y(const E& v) const { f.store(a.out[1] + i * a.out_stride, v); }
+  __device__ __forceinline__ void Z(const E& v) const { f.store(a.out[2] + i * a.out_stride, v); }
+};
+
+template <class Fd>
+struct RegOut {
+  using E = typename Fd::E;
+  RegPoint<Fd>& r;
+  __device__ __forceinline__ void X(const E& v) const { r.x = v; }
+  __device__ __forceinline__ void Y(const E& v) const { r.y = v; }
+  __device__ __forceinline__ void Z(const E& v) const { r.z = v; }
+};
+
+// dbl-2009-l (ec.cl:17-42), point.cu's dbl in levels of independent
+// products (3 levels for 7 products); identity-safe: Z3 = 2*Y*Z = 0.
+template <class Fd, class Out>
+__device__ __forceinline__ void dbl(const Fd& f, const typename Fd::E& X,
+                                    const typename Fd::E& Y, const typename Fd::E& Z,
+                                    const Out& out) {
+  using E = typename Fd::E;
+  E l1[3];  // Y Z, A = X^2, B = Y^2
+  f.mul_many(l1, {Y, X, Y}, {Z, X, Y});
+  const E& A = l1[1];
+  const E& B = l1[2];
+  out.Z(f.canon(f.dbl(l1[0])));
+  const E XB = f.add(X, B);
+  const E Ee = f.add(f.dbl(A), A);
+  E l2[3];  // C = B^2, (X + B)^2, E^2
+  f.mul_many(l2, {B, XB, Ee}, {B, XB, Ee});
+  const E& C = l2[0];
+  const E D = f.dbl(f.sub(f.sub(l2[1], A), C));
+  const E X3 = f.canon(f.sub(l2[2], f.dbl(D)));
+  const E eightC = f.dbl(f.dbl(f.dbl(C)));
+  E l3[1];  // E (D - X3)
+  f.mul_many(l3, {Ee}, {f.sub(D, X3)});
+  out.Y(f.canon(f.sub(l3[0], eightC)));
+  out.X(X3);
+}
+
+// add-2007-bl (ec.cl:85-120), point.cu's add_core in levels of independent
+// products (5 levels for 16 products), with its select tree: P identity ->
+// Q, else Q identity -> P, else P == Q -> returns false and leaves the
+// doubling of P to the caller.  Z3 = 2 (Z1 Z2) H, as point.cu forms it; it
+// and I = (2H)^2 are formed beside S1 and S2, before the P == Q test, and
+// stored only after it.
+template <class Fd, class SP, class SQ, class Out>
+__device__ __forceinline__ bool add_core(const Fd& f, const SP& P, const SQ& Q, const Out& out) {
+  using E = typename Fd::E;
+  const E Z1 = P.Z();
+  const E Z2 = Q.Z();
+  if (f.is_zero(Z1)) {
+    out.X(Q.X()); out.Y(Q.Y()); out.Z(Z2);
+    return true;
+  }
+  if (f.is_zero(Z2)) {
+    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
+    return true;
+  }
+  E l1[3];  // Z1 Z2, Z2Z2, Z1Z1
+  f.mul_many(l1, {Z1, Z2, Z1}, {Z2, Z2, Z1});
+  E l2[4];  // Z2^3, U1 = X1 Z2Z2, Z1^3, U2 = X2 Z1Z1
+  f.mul_many(l2, {Z2, P.X(), Z1, Q.X()}, {l1[1], l1[1], l1[2], l1[2]});
+  const E& U1 = l2[1];
+  const E H = f.canon(f.sub(l2[3], U1));
+  const E H2 = f.dbl(H);
+  E l3[4];  // S1 = Y1 Z2^3, S2 = Y2 Z1^3, Z3, I = (2H)^2
+  f.mul_many(l3, {P.Y(), Q.Y(), f.dbl(l1[0]), H2}, {l2[0], l2[2], H, H2});
+  const E& S1 = l3[0];
+  const E rr = f.canon(f.dbl(f.sub(l3[1], S1)));
+  if (f.is_zero(H) && f.is_zero(rr)) return false;
+  out.Z(f.canon(l3[2]));
+  E l4[3];  // rr^2, J = H I, V = U1 I
+  f.mul_many(l4, {rr, H, U1}, {rr, l3[3], l3[3]});
+  const E X3 = f.canon(f.sub(f.sub(l4[0], l4[1]), f.dbl(l4[2])));
+  E l5[2];  // rr (V - X3), S1 J
+  f.mul_many(l5, {rr, S1}, {f.sub(l4[2], X3), l4[1]});
+  out.Y(f.canon(f.sub(l5[0], f.dbl(l5[1]))));
+  out.X(X3);
+  return true;
+}
+
+// The P == Q rows of the stage's adds: rare, so kept out of the kernel's
+// code.  Row i of coordinates k.. is read again; the result goes to row o.
+template <class Fd>
+__device__ __noinline__ void double_to(const ChainArgs* a, int k, long long i, long long o, const FieldConsts* fc) {
+  const Fd f(*fc);
+  const MemPoint<Fd> P{*a, f, k, i};
+  dbl<Fd>(f, P.X(), P.Y(), P.Z(), MemOut<Fd>{*a, f, o});
+}
+
+// Bit b of a 256-bit scalar held in registers (a select over the words, so
+// that k stays in registers under a run-time b).
+__device__ __forceinline__ uint32_t scalar_bit(const Fe<kScalarWords>& k, int b) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < kScalarWords; ++i) w = (b >> 5) == i ? k.w[i] : w;
+  return (w >> (b & 31)) & 1u;
+}
+
+// acc = [k] P, MSB first from the identity: acc = 2 acc, then acc = acc + P
+// where the bit is set (PointOps.add, falling back to 2 acc where acc == P).
+// Two shortcuts leave every coordinate as tpu_ec's 256 steps give it: the
+// steps above k's top set bit are skipped (the double of (0, 0, 0) is
+// (0, 0, 0), and (0, 0, 0) + P is P itself), and so are the adds of the zero
+// bits (tpu_ec selects acc there).  One call site of dbl serves both the
+// step's doubling and the rare acc == P fallback.  Every lane holds all of
+// k, so the bit tests agree across the tile.
+template <class Fd, class SP>
+__device__ __forceinline__ void scalar_chain(const Fd& f, const SP& P, const Fe<kScalarWords>& k,
+                                             RegPoint<Fd>& acc) {
+  int top = -1;
+#pragma unroll
+  for (int i = 0; i < kScalarWords; ++i)
+    if (k.w[i]) top = 32 * i + 31 - __clz(k.w[i]);
+  if (top < 0) {
+    acc = RegPoint<Fd>{f.zero(), f.zero(), f.zero()};
+    return;
+  }
+  acc = RegPoint<Fd>{P.X(), P.Y(), P.Z()};
+  RegPoint<Fd> t;
+  const RegOut<Fd> to{t};
+  bool same = false;  // the last add found acc == P: this doubling is its result
+#pragma unroll 1
+  for (int b = top - 1; b >= 0;) {
+    dbl<Fd>(f, acc.x, acc.y, acc.z, to);
+    acc = t;
+    if (same) {
+      same = false;
+      --b;
+      continue;
+    }
+    if (scalar_bit(k, b)) {
+      if (!add_core<Fd>(f, acc, P, to)) {
+        same = true;
+        continue;
+      }
+      acc = t;
+    }
+    --b;
+  }
+}
+
+// The Horner combine, one tile a chunk c (args.n chunks): from the all-zero
+// identity, for j = windows-1 .. 0, res = 2^w res (w doublings), then res =
+// res + S_jc (PointOps.add, falling back to 2 res where res == S_jc), in
+// tpu_ec's order.  S: in[0..2] with row strides, row j * n + c.  While res
+// is all zero its doublings are skipped: the double of (0, 0, 0) is (0, 0,
+// 0), so every coordinate stays as tpu_ec's combine gives it.  One call
+// site of dbl serves the doublings and the rare res == S_jc fallback.
+template <class Fd>
+__global__ void __launch_bounds__(kChainThreads)
+    horner_kernel(const __grid_constant__ ChainArgs args, int windows, int w, const __grid_constant__ FieldConsts fc) {
+  const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  if (c >= args.n) return;  // the whole tile
+  const Fd f(fc);
+  RegPoint<Fd> res{f.zero(), f.zero(), f.zero()};
+  RegPoint<Fd> t;
+  const RegOut<Fd> to{t};
+  int left = 0;       // doublings left before window j's add
+  bool same = false;  // the last add found res == S_jc: this doubling is its result
+#pragma unroll 1
+  for (int j = windows - 1; j >= 0;) {
+    if (left > 0 || same) {
+      dbl<Fd>(f, res.x, res.y, res.z, to);
+      res = t;
+      if (!same) {
+        --left;
+        continue;
+      }
+      same = false;
+    } else {
+      if (!add_core<Fd>(f, res, MemPoint<Fd>{args, f, 0, j * args.n + c}, to)) {
+        same = true;
+        continue;
+      }
+      res = t;
+    }
+    --j;  // window j is in: the next one's doublings, unless res is all zero
+    left = f.is_zero(res.x) && f.is_zero(res.y) && f.is_zero(res.z) ? 0 : w;
+  }
+  const MemOut<Fd> out{args, f, c};
+  out.X(res.x); out.Y(res.y); out.Z(res.z);
+}
+
+// One tile a point i: out_i = [k_i] P_i.  P: in[0..2] with row strides, k:
+// 16 half-limbs a row with row stride k_stride (0: one scalar for all).
+template <class Fd>
+__global__ void __launch_bounds__(kChainThreads)
+    scalar_mul_kernel(const __grid_constant__ ChainArgs args, const int32_t* k, long long k_stride,
+                      const __grid_constant__ FieldConsts fc) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  if (i >= args.n) return;  // the whole tile
+  const Fd f(fc);
+  RegPoint<Fd> acc;
+  scalar_chain<Fd>(f, MemPoint<Fd>{args, f, 0, i}, tec::load_fe<kScalarWords>(k + i * k_stride), acc);
+  const MemOut<Fd> out{args, f, i};
+  out.X(acc.x); out.Y(acc.y); out.Z(acc.z);
+}
+
+// One Pease stage s over a batch of transforms of 2 * half points each
+// (tpu_ec/ops/ec_fft.py:_ec_fft_impl): butterfly g = t * half + i, one tile
+// (args.n = batches * half of them, consecutive in a warp), reads a = row
+// t * 2half + i and b = row t * 2half + half + i of in[0..2], writes u = a + b
+// to output row t * 2half + 2i and v = [tw_e](a - b), e = (i >> s) << s, to
+// the next row.  in[3..5] are the outputs again: the chain reads a - b back
+// from v's row, where it is stored first.
+template <class Fd>
+__global__ void __launch_bounds__(kChainThreads)
+    ec_fft_stage_kernel(const __grid_constant__ ChainArgs args, const int32_t* tw, long long half, int s,
+                        const __grid_constant__ FieldConsts fc) {
+  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  if (g >= args.n) return;  // the whole tile
+  const Fd f(fc);
+  const long long t = g / half, i = g - t * half;
+  const long long ia = 2 * t * half + i, ib = ia + half, ou = 2 * t * half + 2 * i, ov = ou + 1;
+  const MemPoint<Fd> A{args, f, 0, ia};
+  if (!add_core<Fd>(f, A, MemPoint<Fd>{args, f, 0, ib}, MemOut<Fd>{args, f, ou}))
+    double_to<Fd>(&args, 0, ia, ou, &fc);
+  if (!add_core<Fd>(f, A, NegMemPoint<Fd>{MemPoint<Fd>{args, f, 0, ib}}, MemOut<Fd>{args, f, ov}))
+    double_to<Fd>(&args, 0, ia, ov, &fc);
+  RegPoint<Fd> acc;
+  scalar_chain<Fd>(f, MemPoint<Fd>{args, f, 3, ov},
+                   tec::load_fe<kScalarWords>(tw + ((i >> s) << s) * 2 * kScalarWords), acc);
+  const MemOut<Fd> out{args, f, ov};
+  out.X(acc.x); out.Y(acc.y); out.Z(acc.z);
+}
+
+ChainArgs make_args(const void* const* in, const long long* in_stride, int n_in, void* const* out,
+                    long long out_stride, long long n) {
+  ChainArgs a;
+  for (int k = 0; k < 6; ++k) {
+    a.in[k] = k < n_in ? (const int32_t*)in[k] : nullptr;
+    a.in_stride[k] = k < n_in ? in_stride[k] : 0;
+  }
+  for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)out[k];
+  a.out_stride = out_stride;
+  a.n = n;
+  return a;
+}
+
+// Threads and blocks for n tiles of kTile lanes, kChainThreads a block.
+void geometry(long long n, unsigned& blocks, int& threads) {
+  const long long lanes = n * kTile;
+  threads = lanes < kChainThreads ? (int)lanes : kChainThreads;
+  blocks = (unsigned)((lanes + threads - 1) / threads);
+}
+
+template <class Fd>
+int launch_horner(const ChainArgs& a, int windows, int w, const FieldConsts& c, cudaStream_t s) {
+  unsigned blocks;
+  int threads;
+  geometry(a.n, blocks, threads);
+  horner_kernel<Fd><<<blocks, threads, 0, s>>>(a, windows, w, c);
+  return (int)cudaGetLastError();
+}
+
+template <class Fd>
+int launch_scalar_mul(const ChainArgs& a, const int32_t* k, long long k_stride, const FieldConsts& c,
+                      cudaStream_t s) {
+  unsigned blocks;
+  int threads;
+  geometry(a.n, blocks, threads);
+  scalar_mul_kernel<Fd><<<blocks, threads, 0, s>>>(a, k, k_stride, c);
+  return (int)cudaGetLastError();
+}
+
+template <class Fd>
+int launch_stage(const ChainArgs& a, const int32_t* tw, long long half, int stage, const FieldConsts& c,
+                 cudaStream_t s) {
+  unsigned blocks;
+  int threads;
+  geometry(a.n, blocks, threads);
+  ec_fft_stage_kernel<Fd><<<blocks, threads, 0, s>>>(a, tw, half, stage, c);
+  return (int)cudaGetLastError();
+}
+
+// The entries' work at ext EXT.  In each, nw is the 32-bit words of Fq (8
+// or 12): a coordinate row holds 2 * nw * EXT int32 half-limbs.
+
+// The Horner window combine of `chunks` MSMs side by side: in = 3 device
+// pointers of the (windows * chunks) per-window sums (X, Y, Z), row
+// j * chunks + c for window j of chunk c, with row strides; out = 3 device
+// pointers of (chunks) contiguous rows.  One tile a chunk.
+template <int EXT>
+int horner_entry(int nw, const void* const* in, const long long* in_stride, int windows, long long chunks, int w,
+                 void* const* out, const uint32_t* fc, void* stream) {
+  if (windows <= 0 || chunks <= 0 || w < 0) return (int)cudaErrorInvalidValue;
+  const ChainArgs a = make_args(in, in_stride, 3, out, 2LL * EXT * nw, chunks);
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) return launch_horner<Field<8, EXT>>(a, windows, w, c, s);
+  if (nw == 12) return launch_horner<Field<12, EXT>>(a, windows, w, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// [k_i] P_i for n points: in = 3 device pointers of (n) coordinate rows
+// with row strides (0: one point for all), k = (n, 16) int32 plain
+// half-limbs with row stride k_stride (0: one scalar for all), out = 3
+// device pointers of (n) contiguous rows, not overlapping the inputs.  One
+// tile a point.
+template <int EXT>
+int scalar_mul_entry(int nw, const void* const* in, const long long* in_stride, const void* k, long long k_stride,
+                     void* const* out, long long n, const uint32_t* fc, void* stream) {
+  if (n <= 0) return 0;
+  const ChainArgs a = make_args(in, in_stride, 3, out, 2LL * EXT * nw, n);
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) return launch_scalar_mul<Field<8, EXT>>(a, (const int32_t*)k, k_stride, c, s);
+  if (nw == 12) return launch_scalar_mul<Field<12, EXT>>(a, (const int32_t*)k, k_stride, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Stage s of `batches` EC-FFTs of 2^log_n points side by side: in = 3 device
+// pointers of (batches * 2^log_n) coordinate rows with row stride
+// in_stride, transform t at rows [t 2^log_n, (t + 1) 2^log_n); out = 3 device
+// pointers of the same shape, contiguous, not overlapping the inputs; tw =
+// the (2^(log_n - 1), 16) contiguous int32 plain twiddle scalars w^j.  One
+// tile a butterfly.
+template <int EXT>
+int stage_entry(int nw, const void* const* in, long long in_stride, void* const* out, const void* tw,
+                long long batches, int log_n, int stage, const uint32_t* fc, void* stream) {
+  if (log_n < 1 || stage < 0 || stage >= log_n || batches < 0) return (int)cudaErrorInvalidValue;
+  const long long half = 1LL << (log_n - 1), n = batches * half;
+  if (n == 0) return 0;
+  const void* ins[6] = {in[0], in[1], in[2], out[0], out[1], out[2]};
+  const long long row = 2LL * EXT * nw;
+  const long long strides[6] = {in_stride, in_stride, in_stride, row, row, row};
+  const ChainArgs a = make_args(ins, strides, 6, out, row, n);
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) return launch_stage<Field<8, EXT>>(a, (const int32_t*)tw, half, stage, c, s);
+  if (nw == 12) return launch_stage<Field<12, EXT>>(a, (const int32_t*)tw, half, stage, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

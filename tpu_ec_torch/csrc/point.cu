@@ -1,260 +1,9 @@
-// K3: batched Jacobian point ops over a short-Weierstrass a = 0 curve.
-//
-// Replaces tpu_ec/ops/pallas/point.py:_point_call_list (and _point_call;
-// entries jac_add, jac_add_mixed, jac_double): add-2007-bl, madd-2007-bl and
-// dbl-2009-l with the completeness select tree of
-// tpu_ec/ops/pallas/point.py:_add_body/_add_mixed_body (identity, P == Q,
-// P == -Q).  (K3's chain entries, the Horner window combine, the scalar
-// multiplication and the EC-FFT stage, are chain.cu, on the lane-tile field
-// core.)  Every stored value is canonical, so the Jacobian outputs are
-// bit-identical to tpu_ec's PointOps, not merely the same point.
-//
-// Bound on the H100: integer-ALU.  An add is 16 field products (11 for the
-// mixed add) of about 600 IMADs each for BLS12-381 against 9 * 96 bytes of
-// half-limb traffic.
-//
-// Design.  One thread per point.  Inside a formula values are reduced
-// lazily, in [0, 2p) (field.cuh *_lazy), and made canonical before every
-// zero test and every store.  The formulas are ordered so that few field
-// elements are live at once, and the operands are read from memory at their
-// first use (MemPoint), so a coordinate is not held in registers through
-// the formula; the rare P == Q doubling of the adds runs in a separate
-// non-inlined function that reads P again.  That keeps the point kernel
-// within __launch_bounds__(128, 4): at most 128 registers, 16 warps an SM.
-// Coordinates are read with row strides (column slices of one fused row
-// matrix need no copy) by 128-bit loads where a row is 16-byte aligned.
-// The adds take an optional per-row keep mask (copy P, lifted to Jacobian,
-// instead of adding: where(~keep, P + Q, P)), and the mixed add an affine
-// P (z omitted), so the pair MSM writes its fused rows directly.
-#include "field.cuh"
+// K3's batched point ops on G1 (coordinates in Fq): point.cuh's formulas
+// at ext 1.
+#include "point.cuh"
 
-namespace {
-
-using tec::Fe;
-using tec::FieldConsts;
-
-constexpr int kAdd = 0, kAddMixed = 1, kDouble = 2;
-constexpr int kThreads = 128;
-constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
-
-struct PointArgs {
-  const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
-  long long in_stride[6];
-  const uint8_t* keep;   // per row: copy P instead of adding; null: add every row
-  int32_t* out[3];
-  long long out_stride;
-  long long n;
-};
-
-// A point operand read from device memory at each use: coordinates k,
-// k + 1, k + 2 of the kernel's arguments at row i, each address formed
-// where it is read (the arguments stay in the parameter space, so no row
-// pointer holds registers).  A null z pointer: an affine point (x, y)
-// lifted to Jacobian, z = 1 (R mod p) or 0 for (0, 0).
-template <int NW>
-struct MemPoint {
-  const PointArgs& a;
-  int k;
-  long long i;
-  __device__ __forceinline__ Fe<NW> at(int c) const {
-    return tec::load_fe<NW>(a.in[k + c] + i * a.in_stride[k + c]);
-  }
-  __device__ __forceinline__ Fe<NW> X() const { return at(0); }
-  __device__ __forceinline__ Fe<NW> Y() const { return at(1); }
-  __device__ __forceinline__ Fe<NW> Z(const FieldConsts& fc) const {
-    if (a.in[k + 2]) return at(2);
-    return tec::fe_is_zero<NW>(X()) && tec::fe_is_zero<NW>(Y()) ? tec::fe_zero<NW>()
-                                                                : tec::fe_const<NW>(fc.one);
-  }
-};
-
-// Where an op's result goes, one coordinate at a time as soon as it is
-// final (canonical): device memory, so it leaves the registers at once.
-template <int NW>
-struct MemOut {
-  const PointArgs& a;
-  long long i;
-  __device__ __forceinline__ void put(int c, const Fe<NW>& v) const {
-    tec::store_fe<NW>(a.out[c] + i * a.out_stride, v);
-  }
-  __device__ __forceinline__ void X(const Fe<NW>& v) const { put(0, v); }
-  __device__ __forceinline__ void Y(const Fe<NW>& v) const { put(1, v); }
-  __device__ __forceinline__ void Z(const Fe<NW>& v) const { put(2, v); }
-};
-
-// dbl-2009-l (ec.cl:17-42); identity-safe: Z3 = 2*Y*Z = 0.
-template <int NW, class Out>
-__device__ __forceinline__ void dbl(const Fe<NW>& X, const Fe<NW>& Y, const Fe<NW>& Z,
-                                    const Out& out, const FieldConsts& fc) {
-  using namespace tec;
-  out.Z(fe_canon<NW>(fe_dbl_lazy<NW>(fe_mul_lazy<NW>(Y, Z, fc), fc), fc));
-  Fe<NW> A = fe_sqr_lazy<NW>(X, fc);
-  Fe<NW> B = fe_sqr_lazy<NW>(Y, fc);
-  Fe<NW> D = fe_sub_lazy<NW>(fe_sqr_lazy<NW>(fe_add_lazy<NW>(X, B, fc), fc), A, fc);
-  Fe<NW> C = fe_sqr_lazy<NW>(B, fc);
-  D = fe_dbl_lazy<NW>(fe_sub_lazy<NW>(D, C, fc), fc);
-  Fe<NW> E = fe_add_lazy<NW>(fe_dbl_lazy<NW>(A, fc), A, fc);
-  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(E, fc), fe_dbl_lazy<NW>(D, fc), fc), fc);
-  Fe<NW> eightC = fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(C, fc), fc), fc);
-  out.Y(fe_canon<NW>(
-      fe_sub_lazy<NW>(fe_mul_lazy<NW>(E, fe_sub_lazy<NW>(D, X3, fc), fc), eightC, fc), fc));
-  out.X(X3);
-}
-
-// add-2007-bl (ec.cl:85-120) with the select tree of PointOps.add: P
-// identity -> Q, else Q identity -> P, else P == Q -> returns false and
-// leaves the doubling of P to the caller.
-template <int NW, class SP, class SQ, class Out>
-__device__ __forceinline__ bool add_core(const SP& P, const SQ& Q, const Out& out,
-                                         const FieldConsts& fc) {
-  using namespace tec;
-  const Fe<NW> Z1 = P.Z(fc);
-  const Fe<NW> Z2 = Q.Z(fc);
-  if (fe_is_zero<NW>(Z1)) {
-    out.X(Q.X()); out.Y(Q.Y()); out.Z(Z2);
-    return true;
-  }
-  if (fe_is_zero<NW>(Z2)) {
-    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
-    return true;
-  }
-  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) * H is formed as 2 * (Z1 * Z2) * H:
-  // the same residue with the same number of products, and stored
-  // canonical the same value.  Z1 * Z2 comes first, then the Z2 chain (U1,
-  // S1), then Z1's, so that few elements are live at once.
-  Fe<NW> Z1Z2 = fe_mul_lazy<NW>(Z1, Z2, fc);
-  Fe<NW> Z2Z2 = fe_sqr_lazy<NW>(Z2, fc);
-  Fe<NW> S1 = fe_mul_lazy<NW>(Z2, Z2Z2, fc);
-  Fe<NW> U1 = fe_mul_lazy<NW>(P.X(), Z2Z2, fc);
-  S1 = fe_mul_lazy<NW>(P.Y(), S1, fc);
-  Fe<NW> Z1Z1 = fe_sqr_lazy<NW>(Z1, fc);
-  Fe<NW> Z1c = fe_mul_lazy<NW>(Z1, Z1Z1, fc);
-  Fe<NW> H = fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(Q.X(), Z1Z1, fc), U1, fc), fc);
-  Fe<NW> rr = fe_canon<NW>(
-      fe_dbl_lazy<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(Q.Y(), Z1c, fc), S1, fc), fc), fc);
-  if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) return false;
-  out.Z(fe_canon<NW>(fe_mul_lazy<NW>(fe_dbl_lazy<NW>(Z1Z2, fc), H, fc), fc));
-  Fe<NW> I = fe_sqr_lazy<NW>(fe_dbl_lazy<NW>(H, fc), fc);
-  Fe<NW> J = fe_mul_lazy<NW>(H, I, fc);
-  Fe<NW> V = fe_mul_lazy<NW>(U1, I, fc);
-  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(rr, fc), J, fc),
-                                           fe_dbl_lazy<NW>(V, fc), fc), fc);
-  out.Y(fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(rr, fe_sub_lazy<NW>(V, X3, fc), fc),
-                                     fe_dbl_lazy<NW>(fe_mul_lazy<NW>(S1, J, fc), fc), fc), fc));
-  out.X(X3);
-  return true;
-}
-
-// madd-2007-bl (ec.cl:45-82) with the select tree of PointOps.add_mixed;
-// A = (x2, y2) affine, (0, 0) = identity.  Returns false where P == Q.
-template <int NW, class SP, class SA, class Out>
-__device__ __forceinline__ bool add_mixed_core(const SP& P, const SA& A, const Out& out,
-                                               const FieldConsts& fc) {
-  using namespace tec;
-  const Fe<NW> Z1 = P.Z(fc);
-  const bool i2 = fe_is_zero<NW>(A.X()) && fe_is_zero<NW>(A.Y());
-  if (fe_is_zero<NW>(Z1)) {
-    out.X(A.X()); out.Y(A.Y());
-    out.Z(i2 ? fe_zero<NW>() : fe_const<NW>(fc.one));
-    return true;
-  }
-  if (i2) {
-    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
-    return true;
-  }
-  // Z3 = (Z1 + H)^2 - Z1Z1 - HH is formed as 2 * Z1 * H: the same
-  // residue and product count, and Z1Z1 need not live until the end.
-  Fe<NW> Z1Z1 = fe_sqr_lazy<NW>(Z1, fc);
-  Fe<NW> H = fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(A.X(), Z1Z1, fc), P.X(), fc), fc);
-  Fe<NW> rr = fe_canon<NW>(fe_dbl_lazy<NW>(
-      fe_sub_lazy<NW>(fe_mul_lazy<NW>(A.Y(), fe_mul_lazy<NW>(Z1, Z1Z1, fc), fc), P.Y(), fc), fc), fc);
-  if (fe_is_zero<NW>(H) && fe_is_zero<NW>(rr)) return false;
-  out.Z(fe_canon<NW>(fe_dbl_lazy<NW>(fe_mul_lazy<NW>(Z1, H, fc), fc), fc));
-  Fe<NW> I = fe_dbl_lazy<NW>(fe_dbl_lazy<NW>(fe_sqr_lazy<NW>(H, fc), fc), fc);
-  Fe<NW> J = fe_mul_lazy<NW>(H, I, fc);
-  Fe<NW> V = fe_mul_lazy<NW>(P.X(), I, fc);
-  Fe<NW> X3 = fe_canon<NW>(fe_sub_lazy<NW>(fe_sub_lazy<NW>(fe_sqr_lazy<NW>(rr, fc), J, fc),
-                                           fe_dbl_lazy<NW>(V, fc), fc), fc);
-  out.Y(fe_canon<NW>(fe_sub_lazy<NW>(fe_mul_lazy<NW>(rr, fe_sub_lazy<NW>(V, X3, fc), fc),
-                                     fe_dbl_lazy<NW>(fe_mul_lazy<NW>(P.Y(), J, fc), fc), fc), fc));
-  out.X(X3);
-  return true;
-}
-
-// The P == Q rows of the adds: rare, so kept out of the adds' code and
-// register allocation.  The operand, row i of coordinates k.., is read again
-// from memory; the result goes to row o.
-template <int NW>
-__device__ __noinline__ void double_to(const PointArgs* a, int k, long long i, long long o,
-                                       const FieldConsts* fc) {
-  const MemPoint<NW> P{*a, k, i};
-  dbl<NW>(P.X(), P.Y(), P.Z(*fc), MemOut<NW>{*a, o}, *fc);
-}
-
-template <int NW, int OP>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    point_kernel(const __grid_constant__ PointArgs args, const __grid_constant__ FieldConsts fc) {
-  using namespace tec;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= args.n) return;
-  const MemOut<NW> out{args, i};
-  const MemPoint<NW> P{args, 0, i};
-  bool done = true;
-  if (OP == kDouble) {
-    dbl<NW>(P.X(), P.Y(), P.Z(fc), out, fc);
-  } else if (args.keep && args.keep[i]) {
-    out.X(P.X()); out.Y(P.Y()); out.Z(P.Z(fc));
-  } else if (OP == kAdd) {
-    done = add_core<NW>(P, MemPoint<NW>{args, 3, i}, out, fc);
-  } else {
-    done = add_mixed_core<NW>(P, MemPoint<NW>{args, 3, i}, out, fc);
-  }
-  if (!done) double_to<NW>(&args, 0, i, i, &fc);
-}
-
-template <int NW>
-int launch(int op, const PointArgs& a, const FieldConsts& fc, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
-  switch (op) {
-    case kAdd: point_kernel<NW, kAdd><<<blocks, kThreads, 0, s>>>(a, fc); break;
-    case kAddMixed: point_kernel<NW, kAddMixed><<<blocks, kThreads, 0, s>>>(a, fc); break;
-    case kDouble: point_kernel<NW, kDouble><<<blocks, kThreads, 0, s>>>(a, fc); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-PointArgs make_args(int n_in, const void* const* in, const long long* in_stride,
-                    void* const* out, long long out_stride, long long n) {
-  PointArgs a;
-  for (int k = 0; k < 6; ++k) {
-    a.in[k] = k < n_in ? (const int32_t*)in[k] : nullptr;
-    a.in_stride[k] = k < n_in ? in_stride[k] : 0;
-  }
-  a.keep = nullptr;
-  for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)out[k];
-  a.out_stride = out_stride;
-  a.n = n;
-  return a;
-}
-
-}  // namespace
-
-// op: 0 add (6 inputs), 1 add_mixed (5; in[2] null: P affine), 2 double (3).
-// in/out: arrays of device pointers to (n, 2*nw) int32 half-limb
-// coordinates with the given row strides (in int32 elements); the outputs
-// must not overlap the inputs.  keep: null, or n bytes (add, add_mixed:
-// nonzero -> out = P).  Returns the launch's CUDA error.
-extern "C" int tec_point(int op, int nw, const void* const* in, const long long* in_stride,
-                         const void* keep, void* const* out, long long out_stride, long long n,
-                         const uint32_t* fc, void* stream) {
-  if (n <= 0) return 0;
-  PointArgs a = make_args(op == kDouble ? 3 : (op == kAddMixed ? 5 : 6), in, in_stride, out,
-                          out_stride, n);
-  a.keep = (const uint8_t*)keep;
-  FieldConsts c = tec::field_consts_from_host(fc);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nw == 8) return launch<8>(op, a, c, s);
-  if (nw == 12) return launch<12>(op, a, c, s);
-  return (int)cudaErrorInvalidValue;
+// point_entry's arguments (point.cuh), coordinates of 2 * nw half-limbs.
+extern "C" int tec_point(int op, int nw, const void* const* in, const long long* in_stride, const void* keep,
+                         void* const* out, long long out_stride, long long n, const uint32_t* fc, void* stream) {
+  return point_entry<1>(op, nw, in, in_stride, keep, out, out_stride, n, fc, stream);
 }

@@ -1,16 +1,20 @@
-"""Batched short-Weierstrass Jacobian point arithmetic (a = 0 curves, G1).
+"""Batched short-Weierstrass Jacobian point arithmetic (a = 0 curves, G1 and G2).
 
-PyTorch counterpart of ``tpu_ec/curves/point.py``.  Point batches are tuples
-of (..., L) half-limb tensors in Montgomery form:
+PyTorch counterpart of ``tpu_ec/curves/point.py``, generic over the field
+as tpu_ec's is: G1 coordinates are (..., L) half-limb tensors of Fq
+(:class:`FieldOps`), G2 coordinates (..., 2L) tensors of Fq2 (:class:`Fp2Ops`,
+c0 then c1), both in Montgomery form; ``PointOps.width`` is a coordinate's
+half-limbs, ext * L.  Point batches are tuples of coordinates:
 
   affine   (x, y)     with (0, 0) = identity
   jacobian (x, y, z)  with z = 0  = identity
 
 ``add``, ``add_mixed``, ``double`` and ``scalar_mul`` go through kernel K3
-(``kernels/point.py``) for every batch size: its plain version on the CPU,
-the CUDA kernel on the card (``scalar_mul`` as one launch of K3's chain
-entry).  ``to_affine`` inverts every z with one Montgomery batch inversion,
-and ``eq`` compares by cross-multiplication (kernel K1 for the products).
+(``kernels/point.py``) for every batch size, its Fq2 instances on G2: its
+plain version on the CPU, the CUDA kernel on the card (``scalar_mul`` as one
+launch of K3's chain entry).  ``to_affine`` inverts every z with one
+Montgomery batch inversion, and ``eq`` compares by cross-multiplication
+(kernel K1 for the products).
 """
 
 from __future__ import annotations
@@ -18,51 +22,31 @@ from __future__ import annotations
 import torch
 
 from ..fields.fp import FieldOps
+from ..fields.fp2 import Fp2Ops
 from ..fields.limbs import resolve_device
 from ..kernels.point import point_op, point_scalar_mul
 from .params import CurveSpec
 
 
-def _prefix_products(F: FieldOps, a: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products along axis 0 (Hillis-Steele, log depth)."""
-    d = 1
-    while d < a.shape[0]:
-        a = torch.cat([a[:d], F.mul(a[d:], a[:-d])], dim=0)
-        d *= 2
-    return a
-
-
-def _batch_inverse(F: FieldOps, a: torch.Tensor) -> torch.Tensor:
-    """Montgomery batch inversion of an (n, L) batch; zeros map to zeros."""
-    iz = F.is_zero(a)
-    one = F.one.expand_as(a)
-    safe = F.select(iz, one, a)
-    pre = _prefix_products(F, safe)
-    suf = _prefix_products(F, safe.flip(0)).flip(0)
-    total_inv = F.inv_(pre[-1:])
-    left = torch.cat([one[:1], pre[:-1]], dim=0)
-    right = torch.cat([suf[1:], one[:1]], dim=0)
-    out = F.mul(F.mul(left, right), total_inv.expand_as(a))
-    return F.select(iz, torch.zeros_like(a), out)
-
-
 class PointOps:
-    """Batched Jacobian group ops bound to one G1 :class:`CurveSpec` and device."""
+    """Batched Jacobian group ops bound to one :class:`CurveSpec` (G1 or G2)
+    and device."""
 
     def __init__(self, spec: CurveSpec, device="cuda"):
-        if spec.ext != 1:
-            raise NotImplementedError("only G1 is ported; G2 needs the Fp2 port (ROADMAP.md queue 1, item 3)")
+        if spec.ext not in (1, 2):
+            raise ValueError(f"ext must be 1 (G1) or 2 (G2), got {spec.ext}")
         self.spec = spec
         self.device = resolve_device(device)
         self.fq = FieldOps(spec.base, self.device)
-        self.F = self.fq
+        self.F = self.fq if spec.ext == 1 else Fp2Ops(spec.base, self.device)
         self.fr = FieldOps(spec.scalar, self.device)
-        self.L = self.fq.L
+        self.L = self.fq.L  #: half-limbs of one Fq element
+        self.width = spec.ext * self.L  #: half-limbs of one coordinate
 
     # -- constructors / predicates ----------------------------------------
 
     def identity_jacobian(self, batch_shape=()):
-        z = torch.zeros(tuple(batch_shape) + (self.L,), dtype=self.fq.dtype, device=self.device)
+        z = torch.zeros(tuple(batch_shape) + (self.width,), dtype=self.fq.dtype, device=self.device)
         return (z, z.clone(), z.clone())
 
     def is_identity(self, P):
@@ -98,8 +82,7 @@ class PointOps:
     def to_affine(self, P):
         """Jacobian -> affine via one batched inversion of z (identity -> (0, 0))."""
         F = self.F
-        z = P[2].reshape(-1, self.L)
-        zinv = _batch_inverse(F, z).reshape(P[2].shape)
+        zinv = F.batch_inverse(P[2].reshape(-1, self.width)).reshape(P[2].shape)
         zinv2 = F.sqr(zinv)
         x = F.mul(P[0], zinv2)
         y = F.mul(P[1], F.mul(zinv, zinv2))
@@ -110,19 +93,19 @@ class PointOps:
 
     def double(self, P):
         """dbl-2009-l; identity-safe (Z3 = 2YZ = 0)."""
-        return point_op(self.spec.base, "double", list(P))
+        return point_op(self.spec.base, "double", list(P), ext=self.spec.ext)
 
     def add(self, P, Q, *, keep=None, out=None):
         """add-2007-bl with select-based completeness.  ``keep`` (bool, the
-        batch shape): P where set instead of the sum; ``out``: a (..., 3L)
+        batch shape): P where set instead of the sum; ``out``: a (..., 3 width)
         destination for the fused result rows (see ``kernels.point.point_op``)."""
-        return point_op(self.spec.base, "add", [*P, *Q], keep=keep, out=out)
+        return point_op(self.spec.base, "add", [*P, *Q], keep=keep, out=out, ext=self.spec.ext)
 
     def add_mixed(self, P, A, *, keep=None, out=None):
         """madd-2007-bl: Jacobian + affine ((0, 0) = identity), the MSM hot op.
         P may be affine (x, y), lifted as :meth:`to_jacobian` does; ``keep``
         and ``out`` as for :meth:`add`."""
-        return point_op(self.spec.base, "add_mixed", [*P, *A], keep=keep, out=out)
+        return point_op(self.spec.base, "add_mixed", [*P, *A], keep=keep, out=out, ext=self.spec.ext)
 
     def neg(self, P):
         return (P[0], self.F.neg(P[1]), P[2])
@@ -140,21 +123,24 @@ class PointOps:
         tpu_ec's ``scalar_mul``.  ``k``: (..., 16) plain (non-Montgomery) Fr
         limbs that broadcast against P's batch; one scalar for every point
         (k of shape (16,) or (1, 16)) is not copied per row."""
-        return point_scalar_mul(self.spec.base, list(P), k)
+        return point_scalar_mul(self.spec.base, list(P), k, ext=self.spec.ext)
 
     # -- host conversion ----------------------------------------------------
 
     def from_affine_ints(self, points):
-        """Oracle affine points (None = identity) -> (x, y) device batch."""
-        xs = [0 if p is None else p[0] for p in points]
-        ys = [0 if p is None else p[1] for p in points]
-        return (self.fq.from_ints(xs), self.fq.from_ints(ys))
+        """Oracle affine points (None = identity; G2 coordinates (c0, c1)
+        pairs) -> (x, y) device batch."""
+        zero = 0 if self.spec.ext == 1 else (0, 0)
+        xs = [zero if p is None else p[0] for p in points]
+        ys = [zero if p is None else p[1] for p in points]
+        return (self.F.from_ints(xs), self.F.from_ints(ys))
 
     def to_affine_ints(self, A):
         """(x, y) affine batch -> list of oracle points (None = identity)."""
+        zero = 0 if self.spec.ext == 1 else (0, 0)
         xs = self.F.to_ints(A[0])
         ys = self.F.to_ints(A[1])
-        return [None if (x == 0 and y == 0) else (x, y) for x, y in zip(xs, ys)]
+        return [None if (x == zero and y == zero) else (x, y) for x, y in zip(xs, ys)]
 
     def scalars_to_limbs(self, scalars) -> torch.Tensor:
         """Plain ints -> (N, Ls) non-Montgomery limbs for MSM digit extraction."""

@@ -1,6 +1,7 @@
-"""Prime fields: specs, Montgomery arithmetic, host-side table arithmetic."""
+"""Prime fields and Fq2: specs, Montgomery arithmetic, host-side table arithmetic."""
 
 from .fp import FieldOps
+from .fp2 import Fp2Ops
 from .params import (
     ALL_FIELDS,
     BLS12_381_FQ,
@@ -23,6 +24,7 @@ __all__ = [
     "LIMB_BITS",
     "LIMB_MASK",
     "FieldOps",
+    "Fp2Ops",
     "FieldSpec",
     "int_to_limbs",
     "limbs_to_int",

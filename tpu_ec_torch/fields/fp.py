@@ -8,7 +8,8 @@ CUDA.  Values are canonical (< p) at every op boundary.
 ``mul``/``sqr``/``to_mont``/``from_mont`` go through kernel K1
 (``kernels/mont.py``): its plain version on the CPU, the CUDA kernel on the
 card.  The rest are plain tensor ops on either device, as ``tpu_ec``
-computes them in jnp too.
+computes them in jnp too.  :func:`batch_inverse` is generic over the
+field-ops object, so ``fields/fp2.py``'s Fp2 uses it too.
 """
 
 from __future__ import annotations
@@ -17,8 +18,34 @@ import numpy as np
 import torch
 
 from ..kernels.mont import mont_mul
-from .limbs import add_plain, resolve_device, storage_dtype, sub_borrow, sub_plain
+from .limbs import LIMB_BITS, LIMB_MASK, add_plain, resolve_device, storage_dtype, sub_borrow, sub_plain
 from .params import FieldSpec, int_to_limbs, limbs_to_int
+
+
+def _prefix_products(F, a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products along axis 0 (Hillis-Steele, log depth)."""
+    d = 1
+    while d < a.shape[0]:
+        a = torch.cat([a[:d], F.mul(a[d:], a[:-d])], dim=0)
+        d *= 2
+    return a
+
+
+def batch_inverse(F, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery batch inversion over the leading axis of an (n, ...)
+    batch, generic over the field-ops object ``F`` (FieldOps or Fp2Ops):
+    prefix and suffix products, one inversion of the total; zeros map to
+    zeros."""
+    iz = F.is_zero(a)
+    one = F.one.expand_as(a)
+    safe = F.select(iz, one, a)
+    pre = _prefix_products(F, safe)
+    suf = _prefix_products(F, safe.flip(0)).flip(0)
+    total_inv = F.inv_(pre[-1:])
+    left = torch.cat([one[:1], pre[:-1]], dim=0)
+    right = torch.cat([suf[1:], one[:1]], dim=0)
+    out = F.mul(F.mul(left, right), total_inv.expand_as(a))
+    return F.select(iz, torch.zeros_like(a), out)
 
 
 class FieldOps:
@@ -31,6 +58,7 @@ class FieldOps:
         self.L = spec.n_limbs
         self.p = self._t(spec.p_limbs)
         self.one = self._t(spec.one_limbs)  # Montgomery 1
+        self.zero = torch.zeros_like(self.one)
         self.r2 = self._t(spec.r2_limbs)
         self.unit = self._t(int_to_limbs(1, self.L))  # plain 1, for from_mont
 
@@ -49,6 +77,11 @@ class FieldOps:
 
     def is_zero(self, a):
         return (a == 0).all(dim=-1)
+
+    def gte(self, a, b):
+        """a >= b as integers (bool, the batch shape)."""
+        _, borrow = sub_borrow(a.to(torch.int64), b.to(torch.int64))
+        return ~borrow
 
     def select(self, cond, a, b):
         """Elementwise select; ``cond`` has the batch shape (no limb axis)."""
@@ -97,6 +130,55 @@ class FieldOps:
     def inv_(self, a):
         """Field inverse via Fermat (a^(p-2)); in-domain for Montgomery reps."""
         return self.pow(a, self.spec.modulus - 2)
+
+    def pow_table(self, base) -> torch.Tensor:
+        """(16 L, ..., L) table of base^(2^i), shared across exponents."""
+        table = [base]
+        for _ in range(self.L * LIMB_BITS - 1):
+            table.append(self.sqr(table[-1]))
+        return torch.stack(table)
+
+    def pow_lookup(self, table, exponent):
+        """base^exponent from a :meth:`pow_table` table; ``exponent``: (...,
+        L) plain limbs that broadcast against the table's batch shape.  LSB
+        first, one product a set bit, as tpu_ec's (a bit no row has set is
+        skipped: the select keeps the accumulator there)."""
+        e = exponent.to(torch.int64)
+        shape = torch.broadcast_shapes(table.shape[1:], e.shape[:-1] + (self.L,))
+        acc = self.one.expand(shape).contiguous()
+        for i in range(self.L * LIMB_BITS):
+            bit = ((e[..., i // LIMB_BITS] >> (i % LIMB_BITS)) & 1) == 1
+            if bool(bit.any()):
+                acc = self.select(bit.expand(shape[:-1]), self.mul(acc, table[i].expand(shape)), acc)
+        return acc
+
+    def batch_inverse(self, a):
+        """Montgomery batch inversion over the leading axis; zeros -> zeros."""
+        return batch_inverse(self, a)
+
+    # -- bit extraction and packing -----------------------------------------
+
+    def get_bits(self, a, skip: int, width: int):
+        """MSB-first window: bits [16 L - skip - width, 16 L - skip) of the
+        plain limbs ``a``, as an integer of the batch shape."""
+        a = a.to(torch.int64)
+        lo = self.L * LIMB_BITS - skip - width
+        acc = torch.zeros(a.shape[:-1], dtype=torch.int64, device=a.device)
+        for w in range(width):
+            i = lo + w
+            acc |= ((a[..., i // LIMB_BITS] >> (i % LIMB_BITS)) & 1) << w
+        return acc
+
+    def pack(self, a):
+        """Half-limbs (..., L) -> (..., L / 2) 32-bit words, int64."""
+        a = a.to(torch.int64)
+        return a[..., 0::2] | (a[..., 1::2] << LIMB_BITS)
+
+    def unpack(self, a32):
+        """32-bit words (..., L / 2) -> half-limbs (..., L) in the storage dtype."""
+        a32 = a32.to(torch.int64)
+        return torch.stack([a32 & LIMB_MASK, a32 >> LIMB_BITS], dim=-1).reshape(
+            *a32.shape[:-1], self.L).to(self.dtype)
 
     # -- host conversion ---------------------------------------------------
 

@@ -2,8 +2,11 @@
 
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 ``.so`` with a plain C interface, loaded with ctypes (no PyTorch headers, so
-the build takes seconds).  The library's file name embeds a hash of the
-sources and flags; it lives in the gitignored build directory
+the build takes seconds).  Each source is one nvcc process, all started
+together; K3's G2 instances have sources of their own (``g2_*.cu``, on the
+templates of ``point.cuh`` and ``chain.cuh``), so that the widest instances
+build side by side.  The library's file name embeds a hash of the sources
+and flags; it lives in the gitignored build directory
 (``config.build_dir("kernels")``), beside the ``-Xptxas -v`` report of the
 build.  Nothing here runs at import: the CPU tests import every module.
 """
@@ -25,8 +28,12 @@ from ..errors import DeviceError
 from ..fields.params import FieldSpec
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("mont.cu", "inter.cu", "point.cu", "chain.cu", "ntt.cu", "affine.cu")
-HEADERS = ("field.cuh", "field_tile.cuh")
+# one nvcc process each, all started together (the longest compiles first)
+SOURCES = (
+    "g2_horner.cu", "g2_scalar_mul.cu", "g2_ec_fft_stage.cu", "g2_point.cu", "chain.cu", "point.cu", "mont.cu",
+    "inter.cu", "ntt.cu", "affine.cu",
+)
+HEADERS = ("field.cuh", "field2.cuh", "field_tile.cuh", "point.cuh", "chain.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,7 +81,7 @@ def ptxas_report() -> str:
 def build() -> float:
     """Compile the library if it is not built yet; returns the seconds taken.
 
-    One nvcc per source, all started together, then one link."""
+    One nvcc per source (``SOURCES``), all started together, then one link."""
     out = library_path()
     if os.path.exists(out):
         return 0.0
@@ -122,14 +129,15 @@ def load() -> ctypes.CDLL:
         lib.tec_mont_mul.restype = i32
         lib.tec_inter.argtypes = [vp, i32, vp, i32, vp, i32, i64, vp, vp]
         lib.tec_inter.restype = i32
-        lib.tec_point.argtypes = [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp]
-        lib.tec_point.restype = i32
-        lib.tec_point_horner.argtypes = [i32, vp, vp, i32, i64, i32, vp, vp, vp]
-        lib.tec_point_horner.restype = i32
-        lib.tec_point_scalar_mul.argtypes = [i32, vp, vp, vp, i64, vp, i64, vp, vp]
-        lib.tec_point_scalar_mul.restype = i32
-        lib.tec_ec_fft_stage.argtypes = [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]
-        lib.tec_ec_fft_stage.restype = i32
+        for sfx in ("", "_fp2"):  # K3's G1 entries and their G2 (Fq2) twins
+            for name, args in (
+                ("tec_point", [i32, i32, vp, vp, vp, vp, i64, i64, vp, vp]),
+                ("tec_point_horner", [i32, vp, vp, i32, i64, i32, vp, vp, vp]),
+                ("tec_point_scalar_mul", [i32, vp, vp, vp, i64, vp, i64, vp, vp]),
+                ("tec_ec_fft_stage", [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]),
+            ):
+                fn = getattr(lib, name + sfx)
+                fn.argtypes, fn.restype = args, i32
         lib.tec_mul_chain.argtypes = [i32, vp, vp, i32, vp, vp, vp]
         lib.tec_mul_chain.restype = i32
         lib.tec_chain_tile.argtypes = [i32]

@@ -8,13 +8,20 @@ launch each: the MSM's Horner window combine
 chunk), the scalar multiplication chain of
 ``tpu_ec/curves/point.py::PointOps.scalar_mul`` (one tile a point) and one
 stage of the EC-group FFT (``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile
-a butterfly).  The kernels are ``csrc/point.cu`` for the batched ops and
-``csrc/chain.cu`` for the three chains, where a tile of 4 lanes runs each
+a butterfly).  The kernels are ``csrc/point.cuh`` for the batched ops and
+``csrc/chain.cuh`` for the three chains, where a tile of 4 lanes runs each
 chain and computes each level of a point op's independent products side by
 side (``csrc/field_tile.cuh``).  The plain version below evaluates the same
 formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
 computes the doubling branch only on the rows that select it), so both are
 bit-identical to ``tpu_ec``'s PointOps.
+
+Every entry takes ``ext``: 1 for G1 (coordinates (..., L) in Fq), 2 for G2
+(coordinates (..., 2L) in Fq2, c0 then c1).  tpu_ec runs G2 on its jnp
+formulas only (no Pallas kernel); the port runs it on Fq2 instances of the
+same kernels (``csrc/field2.cuh``; the ``csrc/g2_*.cu`` units, C entries
+named with "_fp2"), counted apart from the G1 launches.  A
+G2 call on the card launches them or raises, like any other.
 """
 
 from __future__ import annotations
@@ -28,16 +35,45 @@ from ..fields.params import FieldSpec
 from .build import Launches, check, check_cuda, field_consts, load, row_views, stream
 from .mont import mont_mul_plain
 
-LAUNCHES = Launches("point")  # every K3 launch, those of the entries below too
+LAUNCHES = Launches("point")  # every G1 K3 launch, those of the entries below too
 HORNER_LAUNCHES = Launches("point_horner")  # the Horner entry's launches
 CHAIN_LAUNCHES = Launches("point_scalar_mul")  # the scalar-multiplication chain's
 STAGE_LAUNCHES = Launches("ec_fft_stage")  # the EC-FFT stage entry's
 MUL_CHAIN_LAUNCHES = Launches("mul_chain")  # the chains' latency yardstick (on no path)
+# the Fq2 (G2) instances, the same four counts
+LAUNCHES_FP2 = Launches("point_fp2")
+HORNER_LAUNCHES_FP2 = Launches("point_horner_fp2")
+CHAIN_LAUNCHES_FP2 = Launches("point_scalar_mul_fp2")
+STAGE_LAUNCHES_FP2 = Launches("ec_fft_stage_fp2")
+_COUNTS = {1: (LAUNCHES, HORNER_LAUNCHES, CHAIN_LAUNCHES, STAGE_LAUNCHES),
+           2: (LAUNCHES_FP2, HORNER_LAUNCHES_FP2, CHAIN_LAUNCHES_FP2, STAGE_LAUNCHES_FP2)}
 
 SCALAR_LIMBS = 16  # plain Fr scalars of both curves: 256 bits, the chain's length
 
 OPS = {"add": 0, "add_mixed": 1, "double": 2}
 N_IN = {"add": (6,), "add_mixed": (5, 4), "double": (3,)}
+
+
+def _count(ext: int, entry: int = -1) -> None:
+    """One launch of K3 at ``ext``: every launch counts once in the ext's
+    total, an entry's (0 Horner, 1 chain, 2 stage) also in its own."""
+    counts = _COUNTS[ext]
+    counts[0].count += 1
+    if entry >= 0:
+        counts[1 + entry].count += 1
+
+
+def _entry(lib: ctypes.CDLL, name: str, ext: int):
+    """K3's C entry ``name`` at ``ext``: the G1 instance, or its Fq2 twin
+    (``name`` + "_fp2", the ``csrc/g2_*.cu`` units)."""
+    return getattr(lib, name if ext == 1 else name + "_fp2")
+
+
+def _width(spec: FieldSpec, ext: int) -> int:
+    """Half-limbs of one coordinate at ``ext`` (1: Fq, 2: Fq2)."""
+    if ext not in (1, 2):
+        raise ValueError(f"ext must be 1 (G1) or 2 (G2), got {ext}")
+    return ext * spec.n_limbs
 
 
 class _PlainField:
@@ -52,6 +88,9 @@ class _PlainField:
 
     def sub(self, a, b):
         return sub_plain(self.spec, a, b)
+
+    def neg(self, a):
+        return sub_plain(self.spec, torch.zeros_like(a), a)
 
     def mul(self, a, b):
         return mont_mul_plain(self.spec, a, b)
@@ -77,6 +116,53 @@ class _PlainField:
     @staticmethod
     def select(cond, a, b):
         return torch.where(cond.unsqueeze(-1), a, b)
+
+
+class _PlainField2(_PlainField):
+    """The same ops on Fq2 elements, (..., 2L) int64 half-limbs (c0, c1),
+    u^2 = -1: tpu_ec's Fp2Ops, its product the 3-product Karatsuba."""
+
+    def __init__(self, spec: FieldSpec, device):
+        self.base = _PlainField(spec, device)
+        self.spec = spec
+        self.L = spec.n_limbs
+        self.one = torch.cat([self.base.one, torch.zeros_like(self.base.one)])
+
+    def _on_parts(self, fn, *xs):
+        parts = [x.reshape(*x.shape[:-1], 2, self.L) for x in xs]
+        r = fn(self.spec, *parts)
+        return r.reshape(*r.shape[:-2], 2 * self.L)
+
+    def add(self, a, b):
+        return self._on_parts(add_plain, a, b)
+
+    def sub(self, a, b):
+        return self._on_parts(sub_plain, a, b)
+
+    def neg(self, a):
+        return self._on_parts(sub_plain, torch.zeros_like(a), a)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def mul_many(self, *pairs) -> tuple:
+        """The Fq2 products a * b of independent pairs: their 3 Fq products
+        each (a0 b0, a1 b1, (a0 + a1)(b0 + b1)) as one batched base call."""
+        L, F = self.L, self.base
+        ops = []
+        for a, b in pairs:
+            a0, a1, b0, b1 = a[..., :L], a[..., L:], b[..., :L], b[..., L:]
+            ops += [(a0, b0), (a1, b1), (F.add(a0, a1), F.add(b0, b1))]
+        prods = F.mul_many(*ops)
+        out = []
+        for k in range(len(pairs)):
+            aa, bb, o = prods[3 * k : 3 * k + 3]
+            out.append(torch.cat([F.sub(aa, bb), F.sub(F.sub(o, aa), bb)], dim=-1))
+        return tuple(out)
+
+
+def _plain_field(spec: FieldSpec, ext: int, device) -> _PlainField:
+    return _PlainField(spec, device) if ext == 1 else _PlainField2(spec, device)
 
 
 def _double_body(F, X, Y, Z):
@@ -162,7 +248,7 @@ def _add_mixed_body(F, X1, Y1, Z1, X2, Y2):
 _BODIES = {"add": _add_body, "add_mixed": _add_mixed_body, "double": _double_body}
 
 
-def _check(spec: FieldSpec, op: str, coords, keep, out) -> None:
+def _check(spec: FieldSpec, op: str, coords, keep, out, ext: int) -> None:
     """Raise unless the arguments fit the op (before any device work)."""
     if len(coords) not in N_IN[op]:
         raise ValueError(f"{op}: expected {' or '.join(map(str, N_IN[op]))} coordinates, got {len(coords)}")
@@ -174,7 +260,7 @@ def _check(spec: FieldSpec, op: str, coords, keep, out) -> None:
             raise ValueError(f"keep: expected bool {batch} on {coords[0].device}, got "
                              f"{keep.dtype} {tuple(keep.shape)} on {keep.device}")
     if out is not None:
-        want = batch + (3 * spec.n_limbs,)
+        want = batch + (3 * _width(spec, ext),)
         if tuple(out.shape) != want or out.dtype != coords[0].dtype or out.device != coords[0].device:
             raise ValueError(f"out: expected {coords[0].dtype} {want} on {coords[0].device}, got "
                              f"{out.dtype} {tuple(out.shape)} on {out.device}")
@@ -184,12 +270,12 @@ def _split(out: torch.Tensor, L: int) -> tuple:
     return tuple(out[..., k * L : (k + 1) * L] for k in range(3))
 
 
-def point_op_plain(spec: FieldSpec, op: str, coords, keep=None) -> tuple:
+def point_op_plain(spec: FieldSpec, op: str, coords, keep=None, ext: int = 1) -> tuple:
     """Plain PyTorch version on any device: ``coords`` are the op's inputs
-    as (..., L) tensors; returns (X3, Y3, Z3) in the inputs' dtype.  An
+    as (..., ext L) tensors; returns (X3, Y3, Z3) in the inputs' dtype.  An
     add_mixed with 4 coordinates takes P affine and lifts it (z = 1, or 0
     for (0, 0)); ``keep`` (bool, the batch shape) selects P over the sum."""
-    F = _PlainField(spec, coords[0].device)
+    F = _plain_field(spec, ext, coords[0].device)
     c = [t.to(torch.int64) for t in coords]
     if op == "add_mixed" and len(c) == 4:
         ident = F.is_zero(c[0]) & F.is_zero(c[1])
@@ -200,25 +286,26 @@ def point_op_plain(spec: FieldSpec, op: str, coords, keep=None) -> tuple:
     return tuple(r.to(coords[0].dtype) for r in res)
 
 
-def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None) -> tuple:
+def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None, ext: int = 1) -> tuple:
     """One batched group op: ``op`` in add (P, Q Jacobian: 6 coordinates),
     add_mixed (P Jacobian and A affine: 5; or P affine, lifted: 4) or
-    double (P: 3).
+    double (P: 3), over Fq (``ext`` 1, coordinates (..., L)) or Fq2 (2,
+    (..., 2L)).
 
     ``keep`` (add, add_mixed): a bool tensor of the batch shape; where set,
     the result is P (lifted) instead of the sum, i.e. ``where(keep, P, P +
-    Q)``.  ``out``: a (..., 3L) tensor that receives (X3, Y3, Z3) side by
+    Q)``.  ``out``: a (..., 3 ext L) tensor that receives (X3, Y3, Z3) side by
     side (the fused rows of the MSM); it must not overlap the inputs, and
     the result is then its three column slices.
 
     CPU tensors take the plain version.  On CUDA the coordinates are int32
-    (..., L) tensors of one shape whose last axis is contiguous (row strides
-    are passed to the kernel, so column slices of a fused row matrix need no
-    copy); the kernel computes the op on the current stream."""
-    _check(spec, op, coords, keep, out)
-    L = spec.n_limbs
+    (..., ext L) tensors of one shape whose last axis is contiguous (row
+    strides are passed to the kernel, so column slices of a fused row matrix
+    need no copy); the kernel computes the op on the current stream."""
+    L = _width(spec, ext)
+    _check(spec, op, coords, keep, out, ext)
     if coords[0].device.type == "cpu":
-        res = point_op_plain(spec, op, coords, keep)
+        res = point_op_plain(spec, op, coords, keep, ext)
         if out is None:
             return res
         for k, r in enumerate(res):
@@ -242,12 +329,12 @@ def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None) -> tuple:
     ins = (ctypes.c_void_p * 6)(*[None if f is None else f.data_ptr() for f in flat])
     strides = (ctypes.c_longlong * 6)(*[0 if f is None else f.stride(0) for f in flat])
     lib = load()
-    err = lib.tec_point(
-        OPS[op], L // 2, ins, strides, None if keep_flat is None else keep_flat.data_ptr(),
+    err = _entry(lib, "tec_point", ext)(
+        OPS[op], spec.n_limbs // 2, ins, strides, None if keep_flat is None else keep_flat.data_ptr(),
         (ctypes.c_void_p * 3)(*out_ptrs), out_stride, n, field_consts(spec), stream(),
     )
     check(lib, err, f"point {op}")
-    LAUNCHES.count += 1
+    _count(ext)
     if out is not None:
         return _split(out, L)
     return tuple(o.reshape(shape) for o in outs)
@@ -255,13 +342,13 @@ def point_op(spec: FieldSpec, op: str, coords, *, keep=None, out=None) -> tuple:
 
 def _chunk_axis(partials) -> list:
     """Horner partials (W, L) or (W, C, L) -> (W, C, L) views (C = 1 for a
-    single MSM)."""
+    single MSM; L here a coordinate's half-limbs)."""
     if partials[0].dim() not in (2, 3):
         raise ValueError(f"horner: partials must be (W, L) or (W, C, L), got {tuple(partials[0].shape)}")
     return [c if c.dim() == 3 else c.unsqueeze(1) for c in partials]
 
 
-def horner_plain(spec: FieldSpec, partials, w: int) -> tuple:
+def horner_plain(spec: FieldSpec, partials, w: int, ext: int = 1) -> tuple:
     """Plain version of the Horner window combine: from the identity,
     res = 2^w * res + S_j for j = W-1 .. 0 (tpu_ec/ops/msm_pair.py::
     horner_combine; for a batch of C MSMs, all chunks advancing together,
@@ -273,45 +360,40 @@ def horner_plain(spec: FieldSpec, partials, w: int) -> tuple:
     res = tuple(torch.zeros_like(c[0]) for c in S)
     for j in range(W):
         for _ in range(w):
-            res = point_op_plain(spec, "double", list(res))
-        res = point_op_plain(spec, "add", [*res, *(c[W - 1 - j] for c in S)])
+            res = point_op_plain(spec, "double", list(res), ext=ext)
+        res = point_op_plain(spec, "add", [*res, *(c[W - 1 - j] for c in S)], ext=ext)
     return res
 
 
-def horner(spec: FieldSpec, partials, w: int) -> tuple:
+def horner(spec: FieldSpec, partials, w: int, ext: int = 1) -> tuple:
     """The Horner window combine of the MSM, or of C MSMs side by side, in
     one kernel launch (one tile of lanes a chunk, on the point ops'
     formulas, so bit-identical to :func:`horner_plain`).  ``partials``: the
     (W, L) per-window sums (X, Y, Z), or (W, C, L) for C chunks, int32 with
     contiguous last axes on CUDA (row strides go to the kernel); returns
-    (1, L), or (C, L), coordinates.  CPU tensors take the plain version."""
+    (1, L), or (C, L), coordinates (L: ext times the field's half-limbs).
+    CPU tensors take the plain version."""
     if w < 0:
         raise ValueError(f"horner: window size must be >= 0, got {w}")
+    L = _width(spec, ext)
     if partials[0].device.type == "cpu":
-        return horner_plain(spec, partials, w)
-    L = spec.n_limbs
+        return horner_plain(spec, partials, w, ext)
     S = _chunk_axis(partials)
     W, C = S[0].shape[:2]
     flat = row_views("horner", S, L)  # row j * C + c: window j of chunk c
     outs = [torch.empty((C, L), dtype=torch.int32, device=partials[0].device) for _ in range(3)]
     lib = load()
-    err = lib.tec_point_horner(
-        L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
+    err = _entry(lib, "tec_point_horner", ext)(
+        spec.n_limbs // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
         (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), W, C, w,
         (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), field_consts(spec), stream(),
     )
     check(lib, err, "point horner")
-    LAUNCHES.count += 1
-    HORNER_LAUNCHES.count += 1
+    _count(ext, 0)
     return tuple(outs)
 
 
-def _neg_plain(spec: FieldSpec, y: torch.Tensor) -> torch.Tensor:
-    """-y mod p on canonical int64 half-limbs (FieldOps.neg: 0 stays 0)."""
-    return sub_plain(spec, torch.zeros_like(y), y)
-
-
-def scalar_mul_plain(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
+def scalar_mul_plain(spec: FieldSpec, coords, k: torch.Tensor, ext: int = 1) -> tuple:
     """Plain version of the chain: PointOps.scalar_mul as tpu_ec runs it
     (tpu_ec/curves/point.py:334-351), MSB first from the identity over the
     256 bits, acc = double(acc), then acc = add(acc, P) where the bit is
@@ -330,27 +412,28 @@ def scalar_mul_plain(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
         top = 16 * j + int(flat[:, j].max()).bit_length() - 1
         for b in range(top, -1, -1):
             if b != top:
-                acc = list(point_op_plain(spec, "double", acc))
+                acc = list(point_op_plain(spec, "double", acc, ext=ext))
             bit = ((kk[..., b // 16] >> (b % 16)) & 1) != 0
             if bool(bit.any()):
-                acc = list(point_op_plain(spec, "add", [*acc, *P], keep=~bit))
+                acc = list(point_op_plain(spec, "add", [*acc, *P], keep=~bit, ext=ext))
     return tuple(a.to(coords[0].dtype) for a in acc)
 
 
-def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
+def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor, ext: int = 1) -> tuple:
     """[k] P for a batch of Jacobian points, in one kernel launch (one tile
     of lanes a point runs the whole chain; bit-identical to
     :func:`scalar_mul_plain`).  ``coords``: P's (X, Y, Z), (..., L); ``k``:
     (..., 16) plain (non-Montgomery) scalar limbs that broadcast against P's
     batch (a single scalar goes to the kernel with row stride 0).  CPU
     tensors take the plain version; on CUDA everything is int32 and the
-    kernel runs on the current stream.  Returns (X, Y, Z), (..., L)."""
+    kernel runs on the current stream.  Returns (X, Y, Z), (..., L), L: ext
+    times the field's half-limbs."""
     if k.shape[-1] != SCALAR_LIMBS or k.device != coords[0].device:
         raise ValueError(f"scalars: expected (..., {SCALAR_LIMBS}) half-limbs on {coords[0].device}, got "
                          f"{tuple(k.shape)} on {k.device}")
+    L = _width(spec, ext)
     if coords[0].device.type == "cpu":
-        return scalar_mul_plain(spec, coords, k)
-    L = spec.n_limbs
+        return scalar_mul_plain(spec, coords, k, ext)
     shape = coords[0].shape
     flat = row_views("point scalar_mul", coords, L)
     n = flat[0].shape[0]
@@ -362,14 +445,13 @@ def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor) -> tuple:
     outs = [torch.empty((n, L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
     if n:
         lib = load()
-        err = lib.tec_point_scalar_mul(
-            L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
+        err = _entry(lib, "tec_point_scalar_mul", ext)(
+            spec.n_limbs // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]),
             (ctypes.c_longlong * 3)(*[f.stride(0) for f in flat]), kk.data_ptr(), kk.stride(0),
             (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), n, field_consts(spec), stream(),
         )
         check(lib, err, "point scalar_mul")
-        LAUNCHES.count += 1
-        CHAIN_LAUNCHES.count += 1
+        _count(ext, 1)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -423,7 +505,7 @@ def _stage_log_n(coords, tw: torch.Tensor, s: int) -> int:
     return log_n
 
 
-def ec_fft_stage_plain(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
+def ec_fft_stage_plain(spec: FieldSpec, coords, tw: torch.Tensor, s: int, ext: int = 1) -> tuple:
     """Plain version of one EC-FFT stage (tpu_ec/ops/ec_fft.py:_ec_fft_impl):
     along axis -2 of (..., n, L), a = rows [0, n/2), b = rows [n/2, n);
     u = a + b, v = [tw_e](a - b) with e = (i >> s) << s (PointOps.add, sub
@@ -434,15 +516,15 @@ def ec_fft_stage_plain(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tup
     h = n // 2
     a = [c[..., :h, :] for c in P]
     b = [c[..., h:, :] for c in P]
-    u = point_op_plain(spec, "add", [*a, *b])
-    d = point_op_plain(spec, "add", [*a, b[0], _neg_plain(spec, b[1]), b[2]])
+    u = point_op_plain(spec, "add", [*a, *b], ext=ext)
+    d = point_op_plain(spec, "add", [*a, b[0], _plain_field(spec, ext, b[1].device).neg(b[1]), b[2]], ext=ext)
     e = (torch.arange(h, device=tw.device) >> s) << s
-    v = scalar_mul_plain(spec, d, tw[e])
+    v = scalar_mul_plain(spec, d, tw[e], ext)
     return tuple(torch.stack([x, y], dim=-2).reshape(x.shape[:-2] + (n, x.shape[-1])).to(coords[0].dtype)
                  for x, y in zip(u, v))
 
 
-def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
+def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int, ext: int = 1) -> tuple:
     """Stage ``s`` of the EC-group FFT for every transform of a batch, in one
     kernel launch (one tile of lanes a butterfly; bit-identical to
     :func:`ec_fft_stage_plain`).  ``coords``: (X, Y, Z) of shape (..., n,
@@ -451,9 +533,9 @@ def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
     tensors take the plain version; on CUDA everything is int32 and the
     kernel runs on the current stream."""
     log_n = _stage_log_n(coords, tw, s)
+    L = _width(spec, ext)
     if coords[0].device.type == "cpu":
-        return ec_fft_stage_plain(spec, coords, tw, s)
-    L = spec.n_limbs
+        return ec_fft_stage_plain(spec, coords, tw, s, ext)
     shape = coords[0].shape
     flat = row_views("ec_fft_stage", coords, L)
     if len({f.stride(0) for f in flat}) != 1:
@@ -463,12 +545,11 @@ def ec_fft_stage(spec: FieldSpec, coords, tw: torch.Tensor, s: int) -> tuple:
     batches = flat[0].shape[0] >> log_n
     if batches:
         lib = load()
-        err = lib.tec_ec_fft_stage(
-            L // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]), flat[0].stride(0),
+        err = _entry(lib, "tec_ec_fft_stage", ext)(
+            spec.n_limbs // 2, (ctypes.c_void_p * 3)(*[f.data_ptr() for f in flat]), flat[0].stride(0),
             (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]), tw.data_ptr(), batches, log_n, s,
             field_consts(spec), stream(),
         )
         check(lib, err, "ec_fft_stage")
-        LAUNCHES.count += 1
-        STAGE_LAUNCHES.count += 1
+        _count(ext, 2)
     return tuple(o.reshape(shape) for o in outs)

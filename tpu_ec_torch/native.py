@@ -195,32 +195,50 @@ class NativeField:
 
 
 class NativeCurve:
-    """Native scalar multiplication, to-affine and MSM for one G1 curve.
+    """Native scalar multiplication, to-affine, MSM and EC-FFT for one curve,
+    G1 or G2 (ext = 2: coordinates in Fq2, c0's words then c1's).
 
-    Point layout: Jacobian (n, 3*W64), affine (n, 2*W64), u64
+    Point layout: Jacobian (n, 3*W64*ext), affine (n, 2*W64*ext), u64
     Montgomery coordinates, (0,0)/z=0 identity (GpuRepr parity,
     ag-types/src/impls.rs:48-58).  Scalars (n, 4) plain u64.
     """
 
     def __init__(self, spec: CurveSpec):
-        if spec.ext != 1:
-            raise ValueError("only G1 is bound")
+        if spec.ext not in (1, 2):
+            raise ValueError(f"ext must be 1 (G1) or 2 (G2), got {spec.ext}")
         lib = _load()
         self.lib = lib
         self.spec = spec
         self.fq = NativeField(spec.base)
         self.fr = NativeField(spec.scalar)
-        self.w = self.fq.w64  # u64 words per coordinate
-        self.handle = lib.ecn_curve_new(self.fq.handle, self.fr.handle, 1)
+        self.ext = spec.ext
+        self.w = self.fq.w64 * spec.ext  # u64 words per coordinate
+        self.handle = lib.ecn_curve_new(self.fq.handle, self.fr.handle, spec.ext)
 
     # -- conversions ---------------------------------------------------------
 
-    def _coord_from_int(self, v: int) -> np.ndarray:
-        """Plain coordinate -> (w,) u64 Montgomery."""
-        return self.fq.from_ints([v])[0]
+    def _coord_from_int(self, v) -> np.ndarray:
+        """Plain coordinate (int, or (c0, c1) on G2) -> (w,) u64 Montgomery."""
+        if self.ext == 1:
+            return self.fq.from_ints([v])[0]
+        return np.concatenate([self.fq.from_ints([v[0]])[0], self.fq.from_ints([v[1]])[0]])
 
-    def _coord_to_int(self, limbs: np.ndarray) -> int:
-        return self.fq.to_ints(limbs[None, :])[0]
+    def _coord_to_int(self, limbs: np.ndarray):
+        if self.ext == 1:
+            return self.fq.to_ints(limbs[None, :])[0]
+        h = self.fq.w64
+        return (self.fq.to_ints(limbs[None, :h])[0], self.fq.to_ints(limbs[None, h:])[0])
+
+    def coord_to_halflimbs(self, a: np.ndarray) -> np.ndarray:
+        """(n, w) u64 coordinates -> (n, ext L) uint32 half-limbs, the
+        port's layout (G2: c0's L half-limbs, then c1's)."""
+        a = _as_u64(a, self.w).reshape(-1, self.fq.w64)
+        return self.fq.to_halflimbs(a).reshape(-1, self.ext * self.spec.base.n_limbs)
+
+    def coord_from_halflimbs(self, a) -> np.ndarray:
+        """(n, ext L) half-limbs (the port's layout) -> (n, w) u64."""
+        return self.fq.from_halflimbs(np.asarray(a, dtype=np.uint64).reshape(-1, self.spec.base.n_limbs)).reshape(
+            -1, self.w)
 
     def affine_from_points(self, points) -> np.ndarray:
         """List of oracle affine points (None = identity) -> (n, 2w) u64."""

@@ -13,7 +13,8 @@ e = (i >> s) << s, interleaved; the output is bit-reversed back to natural
 order (ark's Radix2EvaluationDomain convention) and the inverse transform
 scales by n^-1.  On the card a stage is one launch of K3's EC-FFT stage
 entry for every transform of a batch, the bit reversal one gather, and the
-inverse's scaling one launch of K3's chain entry.  The twiddle exponents
+inverse's scaling one launch of K3's chain entry.  G2 runs the same
+dataflow on K3's Fq2 instances (coordinates of ``PointOps.width`` = 2L).  The twiddle exponents
 come as plain (non-Montgomery) scalar limbs from a host table built once a
 domain.
 """
@@ -72,7 +73,7 @@ def get_ec_domain(spec: CurveSpec, log_n: int, inverse: bool = False) -> EcDomai
 
 
 class EcFftKernel:
-    """The EC-FFT bound to one G1 curve and device (EcFftKernel parity,
+    """The EC-FFT bound to one curve (G1 or G2) and device (EcFftKernel parity,
     ec-gpu-proxy/src/ec_fft.rs:164-280).  ``radix_ec_fft`` transforms one
     Jacobian batch, ``radix_ec_fft_many`` several; ``maybe_abort`` is polled
     before every transform (ec_fft.rs:100-104)."""
@@ -113,13 +114,13 @@ class EcFftKernel:
         tw, n_inv, rev = self._domain_tensors(log_n, inverse)
         Y = tuple(P)
         for s in range(log_n):
-            Y = ec_fft_stage(self.spec.base, Y, tw, s)
+            Y = ec_fft_stage(self.spec.base, Y, tw, s, ext=self.spec.ext)
         Y = tuple(c.index_select(-2, rev) for c in Y)
         return self.ops.scalar_mul(Y, n_inv) if inverse else Y
 
     def radix_ec_fft(self, P, inverse: bool = False):
-        """The EC-FFT of one Jacobian batch P = (X, Y, Z), each (n, L), n a
-        power of two; natural order in and out."""
+        """The EC-FFT of one Jacobian batch P = (X, Y, Z), each (n, L) (L =
+        ``PointOps.width``), n a power of two; natural order in and out."""
         self._check_abort()
         return self._transform(P, inverse)
 

@@ -4,7 +4,8 @@ PyTorch counterpart of ``tpu_ec/ops/msm.py`` for signed digits: window
 digits (``make_digits``), chunk sizing by device memory
 (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
 engine (``ops/msm_pair.py``, the commit pipeline's), the co-Z engine
-(``ops/msm_coz.py``) or the scan engine (``ops/msm_scan.py``), with
+(``ops/msm_coz.py``) or the scan engine (``ops/msm_scan.py``, the one G2
+runs on, as in tpu_ec: the other two are G1-only), with
 oversized inputs split into chunks whose partial sums are added on the
 device, and ``MultiexpKernel.multiple_multiexp``, the batch of independent
 MSMs of the AMT workload (``tpu_ec/ops/msm_batch.py``), in slabs of chunks
@@ -128,8 +129,15 @@ def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
 _NOT_PORTED = {"sorted": "item 15", "lattice": "item 11"}
 
 
+def _auto(spec: CurveSpec) -> str:
+    """The engine "auto" picks, as tpu_ec's does on an accelerator
+    (tpu_ec/ops/msm.py:393-405, 515-522): the pair engine on G1, the scan
+    engine on G2 (the pair and co-Z engines are G1-only)."""
+    return "pair" if spec.ext == 1 else "scan"
+
+
 class MultiexpKernel:
-    """MSM entry point bound to one G1 curve and device."""
+    """MSM entry point bound to one curve (G1 or G2) and device."""
 
     def __init__(self, spec: CurveSpec, device="cuda", maybe_abort=None,
                  chunk_size: int | None = None):
@@ -147,19 +155,20 @@ class MultiexpKernel:
                  method: str = "auto"):
         """sum_i scalars[i] * bases[i] -> one Jacobian point (batch (1,)).
 
-        ``bases`` are affine (x, y) of (n, L) ((0, 0) = identity);
-        ``scalars`` are (n, Ls) plain-integer limbs (not Montgomery; see
+        ``bases`` are affine (x, y) of (n, L) ((0, 0) = identity; L =
+        ``PointOps.width``, 2 Fq elements a coordinate on G2); ``scalars``
+        are (n, Ls) plain-integer limbs (not Montgomery; see
         ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
-        pair-halving engine, which "auto" picks), "coz" (the co-Z
-        scaled-affine engine) or "scan" (the masked segmented-scan
-        engine)."""
+        pair-halving engine, which "auto" picks on G1), "coz" (the co-Z
+        scaled-affine engine) or "scan" (the masked segmented-scan engine,
+        which "auto" picks on G2)."""
         from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
         from .msm_scan import default_window_size_scan, msm_scan
 
         self._check_abort()
         if method == "auto":
-            method = "pair"
+            method = _auto(self.spec)
         if method in _NOT_PORTED:
             raise NotImplementedError(
                 f"MSM engine {method!r} is not ported yet (ROADMAP.md queue 1, {_NOT_PORTED[method]})"
@@ -203,8 +212,8 @@ class MultiexpKernel:
         rows [c * n, (c + 1) * n)) -> a Jacobian batch of num_chunks points.
 
         ``method``: "pair" (the flat one-sort engine: the pair engine with a
-        chunk axis, which "auto" picks) or "scan" (the scan engine with a
-        chunk axis) run the batch in slabs of chunks sized from the device
+        chunk axis, which "auto" picks on G1) or "scan" (the scan engine with
+        a chunk axis, "auto" on G2) run the batch in slabs of chunks sized from the device
         memory (``batch_slab``); the window is ``window_size`` or the
         engine's model at the chunk size.  Any other method runs one
         ``multiexp`` per chunk."""
@@ -213,7 +222,7 @@ class MultiexpKernel:
             raise ValueError(f"bases must split evenly into chunks: {n} points, {num_chunks} chunks")
         chunk = n // num_chunks
         if method == "auto":
-            method = "pair"
+            method = _auto(self.spec)
         if method not in ("pair", "scan"):
             outs = []
             for c in range(num_chunks):

@@ -160,7 +160,8 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
     are (n, Ls + 1), or (C, n, Ls + 1), plain limbs, zero-padded by one
     limb."""
     if ops.spec.ext != 1:
-        raise NotImplementedError("the pair engine is G1-only")
+        raise NotImplementedError("the pair engine is G1-only, as tpu_ec's is (tpu_ec/ops/msm_pair.py:174); "
+                                  "G2 runs on the scan engine (method 'scan' or 'auto')")
     L = ops.L
     w = window_size
     num_windows = -(-SCALAR_BITS // w)

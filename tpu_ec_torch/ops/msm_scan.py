@@ -14,8 +14,10 @@ and for a batch all chunks, in one tensor):
   3. the Horner window combine (kernel K3, one tile of lanes a chunk).
 
 It does ~log2(n) times the pair engine's adds; ``tpu_ec`` built it for its
-short XLA compile.  Fused blocks carry 3 * ext * L columns as in ``tpu_ec``;
-the port's ``PointOps`` is G1-only (ext = 1) and raises for G2.
+short XLA compile, and its "auto" runs G2 here.  A coordinate is
+``ops.width`` = ext * L half-limbs (Fq2's c0 then c1 on G2), so fused blocks
+carry 3 * ext * L columns, in tpu_ec's column order; K3 runs its Fq2
+instances on G2.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from .msm import SCALAR_BITS, make_digits
 
 
 def _fuse(P):
-    """Coordinates (..., L) each -> one fused (..., k L) row block."""
+    """Coordinates (..., L) each -> one fused (..., k L) row block (L: a
+    coordinate's half-limbs, ``PointOps.width``)."""
     return torch.cat(P, dim=-1)
 
 
@@ -47,12 +50,13 @@ def _fused_add(ops: PointOps, a, b, L: int, *, keep=None):
     return out
 
 
-def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
-    """Signed digits (..., W, n) and affine points (x, y) of (..., n, L) ->
-    fused (..., W, half + 2, 3L) Jacobian buckets (slot 0 = digit-0 junk,
-    slot half + 1 = scatter junk; both excluded downstream).  Leading axes
-    (a batch of chunks) pair each chunk's digits with its own points."""
-    L = ops.L
+def sorted_rows(ops: PointOps, points, digits_t: torch.Tensor):
+    """The segmented scan's input: signed digits (..., W, n) and affine
+    points (x, y) of (..., n, L) -> (key, data): the |digit|s sorted along
+    n, (B W, n), and the fused (B W, n, 3L) Jacobian rows in that order, a
+    negative digit's point negated (B: the leading axes' size, each chunk's
+    digits paired with its own points; L = ``ops.width``)."""
+    L = ops.width
     lead = digits_t.shape[:-2]
     W, n = digits_t.shape[-2:]
     B = math.prod(lead)
@@ -68,19 +72,34 @@ def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
     rows = table.index_select(0, idx.reshape(-1)).reshape(B * W, n, 2 * L)
     del table, idx, perm
     data = torch.cat(ops.to_jacobian((rows[..., :L], rows[..., L:])), dim=-1)  # z = 0 for (0, 0)
-    del rows
-    key = key.reshape(B * W, n)
+    return key.reshape(B * W, n), data
 
-    iota = torch.arange(n, device=key.device)
+
+def scan_round(data: torch.Tensor, key: torch.Tensor, h: int):
+    """The operands of the scan's round with stride h: each row's partner,
+    the row h before it, and ``keep``, set where the keys differ or the row
+    is below h (there the row stays as it is)."""
+    iota = torch.arange(key.shape[-1], device=key.device)
+    same = (key == torch.roll(key, h, dims=1)) & (iota >= h)
+    return torch.roll(data, h, dims=1), ~same
+
+
+def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
+    """Signed digits (..., W, n) and affine points (x, y) of (..., n, L) ->
+    fused (..., W, half + 2, 3L) Jacobian buckets (slot 0 = digit-0 junk,
+    slot half + 1 = scatter junk; both excluded downstream), L =
+    ``ops.width``.  Leading axes (a batch of chunks) pair each chunk's
+    digits with its own points."""
+    lead, (W, n) = digits_t.shape[:-2], digits_t.shape[-2:]
+    key, data = sorted_rows(ops, points, digits_t)
     for r in range(max(0, (n - 1).bit_length())):
-        h = 1 << r
-        k_sh = torch.roll(key, h, dims=1)
-        same = (key == k_sh) & (iota >= h)
-        data = _fused_add(ops, data, torch.roll(data, h, dims=1), L, keep=~same)
+        partner, keep = scan_round(data, key, 1 << r)
+        data = _fused_add(ops, data, partner, ops.width, keep=keep)
+        del partner
 
     nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], -1)], dim=1)
     slot = torch.where(key != nxt, key.clamp(max=half + 1), half + 1).long()
-    out = data.new_zeros((B * W, half + 2, data.shape[-1]))
+    out = data.new_zeros((key.shape[0], half + 2, data.shape[-1]))
     out.scatter_(1, slot.unsqueeze(-1).expand(data.shape), data)
     return out.reshape(*lead, W, half + 2, data.shape[-1])
 
@@ -115,14 +134,15 @@ def bucket_tail(ops: PointOps, buckets: torch.Tensor, half: int):
     row summed by the tree (sum of reversed prefixes = sum_k k b_k).
     Returns (..., 3L)."""
     rev = buckets[..., 1 : half + 1, :].flip(-2)
-    return masked_tree_sum(ops, masked_prefix_scan_add(ops, rev, ops.L, half), ops.L, half)
+    return masked_tree_sum(ops, masked_prefix_scan_add(ops, rev, ops.width, half), ops.width, half)
 
 
 def msm_scan(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
-    """MSMs on the scan engine: affine (x, y) of (n, L) and (n, Ls + 1)
-    plain zero-padded scalar limbs -> one Jacobian point, batch (1,); with a
-    leading chunk axis, (C, n, L) and (C, n, Ls + 1) -> batch (C,)."""
-    L = ops.L
+    """MSMs on the scan engine: affine (x, y) of (n, L) (L = ``ops.width``)
+    and (n, Ls + 1) plain zero-padded scalar limbs -> one Jacobian point,
+    batch (1,); with a leading chunk axis, (C, n, L) and (C, n, Ls + 1) ->
+    batch (C,)."""
+    L = ops.width
     w = window_size
     num_windows = -(-SCALAR_BITS // w)
     half = 1 << (w - 1)
@@ -134,7 +154,7 @@ def msm_scan(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     digits_t = digits.reshape(C, n, num_windows).transpose(1, 2)  # (C, W, n)
     buckets = scan_buckets(ops, points, digits_t, half=half)  # (C, W, half + 2, 3L)
     tri = bucket_tail(ops, buckets, half).transpose(0, 1)  # (W, C, 3L)
-    return horner(ops.spec.base, _unfuse(tri, L, 3), w)
+    return horner(ops.spec.base, _unfuse(tri, L, 3), w, ext=ops.spec.ext)
 
 
 def default_window_size_scan(n: int) -> int:

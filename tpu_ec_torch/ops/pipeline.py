@@ -25,7 +25,9 @@ from .ntt import FftKernel
 
 
 class CommitPipeline:
-    """NTT -> from_mont -> MSM against a fixed G1 point table (SRS analog)."""
+    """NTT -> from_mont -> MSM against a fixed G1 or G2 point table (SRS
+    analog); the MSM's "auto" engine is the pair engine on G1, the scan
+    engine on G2."""
 
     def __init__(self, spec: CurveSpec, device="cuda", maybe_abort=None):
         self.spec = spec
@@ -37,7 +39,7 @@ class CommitPipeline:
 
     def commit(self, coeffs: torch.Tensor, basis):
         """coeffs: (n, Ls) Fr Montgomery limbs; basis: affine (x, y) of n G1
-        points.  Returns (evals (n, Ls) Montgomery, commitment: a Jacobian
+        or G2 points.  Returns (evals (n, Ls) Montgomery, commitment: a Jacobian
         point with batch shape (1,))."""
         evals = self.fft.radix_fft(coeffs)
         scalars = self.fr.from_mont(evals)  # plain ints for digit extraction
