@@ -83,7 +83,10 @@ Phases, each failing the run on any error:
    ``commit_coefficient_basis`` and ``commit_sparse`` (a seeded
    half-density ``DensityTracker``, skip 0) at 2^n on phase 4's data, each
    against the native Pippenger over the same terms, with ms;
-4g. G2, on K3's Fq2 instances: ``MultiexpKernel(BLS12_381_G2).multiexp``
+4g. G2, on K3's Fq2 instances (first their registers, spill bytes and SASS
+   instructions from the build's ptxas report and ``cuobjdump``, their
+   units' nvcc seconds, and the chains' tile of lanes):
+   ``MultiexpKernel(BLS12_381_G2).multiexp``
    with "auto" (the scan engine, as in tpu_ec) at 2^n on points k_i G2 (random
    64-bit k_i, native scalar mul), its commitment against (sum k_i s_i) G2
    from one native scalar multiplication, its Fq2 K3 launches against the
@@ -100,7 +103,8 @@ Phases, each failing the run on any error:
    and out=; the point ops on 2^16 rows with identity, P == Q and P == -Q
    rows, and the keep / out= entry; the Horner at the main path's own
    window sums; the chain at 1024 points; the stage at stage 0 of the
-   BN254 2^11 transform);
+   BN254 2^11 transform), and one Fq2 point op's latency in series at 8
+   and 12 words (a one-point chain over 2^256 - 1);
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -258,7 +262,9 @@ def affine_to_u64(nc, xy):
 KERNEL_LABELS = (
     ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
     ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")), ("horner_kernel", "K3 horner"),
+    ("point2_kernel", ("K3 add", "K3 add_mixed", "K3 double")),
     ("double_to", "K3 double_to (device function of the adds)"),
+    ("double2_to", "K3 double_to (device function of the adds)"),
     ("scalar_mul_kernel", "K3 scalar_mul chain"), ("ec_fft_stage_kernel", "K3 ec_fft_stage"),
     ("ntt_leaf_kernel", ("K4 ntt_leaf", "K4 ntt_leaf+level")), ("pease_rows_kernel", "K5 pease_rows"),
     ("pease_stage_kernel", "K5 pease_stage (rows too long for one block)"),
@@ -271,7 +277,7 @@ def kernel_label(name: str) -> str:
     """Label of a kernel's mangled (ptxas) or demangled (profiler) name; K3's
     Fq2 (G2) instances get " fp2" after the label."""
     args = re.findall(r"Li(\d+)E", name) or re.findall(r"(?<=[<, ])(\d+)(?=[>,])", name)
-    fp2 = " fp2" if ("Ext2" in name or "TileProducts2" in name) else ""
+    fp2 = " fp2" if any(t in name for t in ("point2_kernel", "double2_to", "TileProducts2")) else ""
     for key, label in KERNEL_LABELS:
         if key in name:
             if isinstance(label, tuple):
@@ -391,6 +397,42 @@ def sass_mix(lib_path: str, kernel: str) -> str:
     return (f"{counts['wide']} IMAD.WIDE + {counts['imad']} other IMAD (IMAD.MOV not counted) = "
             f"{2 * counts['wide'] + counts['imad']} IMAD-equivalents, {counts['iadd3']} IADD3, "
             f"{counts['all']} instructions")
+
+
+def sass_sizes(lib_path: str) -> dict:
+    """{mangled function: SASS instructions} of the built library (cuobjdump
+    -sass), the code size of each kernel and non-inlined function."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
+                         timeout=300)
+    sizes, cur = {}, None
+    for ln in res.stdout.splitlines():
+        if (m := re.search(r"Function : (\S+)", ln)):
+            cur = m.group(1)
+            sizes[cur] = 0
+        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", ln):
+            sizes[cur] += 1
+    return sizes
+
+
+def fp2_build_lines(report: str, sizes: dict) -> list[str]:
+    """One line per Fq2 (G2) kernel of K3: registers and spill bytes from
+    ``-Xptxas -v`` (a non-inlined callee's properties are its own), SASS
+    instructions from ``sizes``."""
+    rows, entry, props = {}, None, None
+    for ln in report.splitlines():
+        if (m := re.search(r"Compiling entry function '([^']+)'", ln)):
+            entry = m.group(1)
+            if kernel_label(entry).split("<")[0].endswith("fp2"):
+                rows[entry] = ["?", "?"]
+        elif (m := re.search(r"Function properties for (\S+)", ln)):
+            props = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores", ln)) and props in rows:
+            rows[props][1] = m.group(1)
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry in rows and rows[entry][0] == "?":
+            rows[entry][0] = m.group(1)
+    return [f"{kernel_label(k)}: {r} regs, spill stores {s} B, {sizes.get(k, 0)} SASS instructions"
+            for k, (r, s) in rows.items()]
 
 
 def mont_imads(nw: int) -> int:
@@ -581,8 +623,9 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     from tpu_ec_torch import kernels
     from tpu_ec_torch.curves.params import BLS12_381_G2, BN254_G2
     from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR
-    from tpu_ec_torch.kernels.point import (ec_fft_stage, ec_fft_stage_plain, horner, horner_plain, point_op,
-                                            point_op_plain, point_scalar_mul, scalar_mul_plain)
+    from tpu_ec_torch.kernels import build
+    from tpu_ec_torch.kernels.point import (chain_tile, ec_fft_stage, ec_fft_stage_plain, horner, horner_plain,
+                                            point_op, point_op_plain, point_scalar_mul, scalar_mul_plain)
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.ec_fft import EcFftKernel
     from tpu_ec_torch.ops.msm import SCALAR_BITS, MultiexpKernel, make_digits
@@ -597,6 +640,21 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     nfr, nfr_bn = native_field(BLS12_381_FR), native_field(BN254_FR)
     L2 = 2 * BLS12_381_FQ.n_limbs  # a G2 coordinate: 48 half-limbs (BLS12-381), 32 (BN254)
     imad12, imad8 = mont_imads(12), mont_imads(8)
+
+    # K3's Fq2 instances as built: registers, spills and code size; their units' nvcc seconds
+    for ln in fp2_build_lines(build.ptxas_report(), sass_sizes(build.library_path())):
+        print(f"build fp2: {ln}", flush=True)
+    secs = build.unit_seconds()
+    print(f"build fp2: nvcc seconds {({k: v for k, v in secs.items() if k.startswith('g2_')})}, the G1 units' "
+          f"longest {max(v for k, v in secs.items() if not k.startswith('g2_'))}; the point kernel on two lanes "
+          f"a row, the chains on a tile of {chain_tile(BN254_FQ, 2)} lanes (8 words) and "
+          f"{chain_tile(BLS12_381_FQ, 2)} (12 words)", flush=True)
+
+    def op_latency(fq, P):
+        """Device ms of one Fq2 point op in series: a one-point chain over
+        2^256 - 1 (255 doublings and 255 adds) on one tile."""
+        ones = torch.full((1, 16), 0xFFFF, dtype=torch.int32, device=dev)
+        return cuda_ms(lambda: point_scalar_mul(fq, [c[:1] for c in P], ones, ext=2)) / 510
 
     # the main path: MultiexpKernel(BLS12_381_G2).multiexp, "auto", at 2^log_n
     t0 = time.perf_counter()
@@ -803,6 +861,9 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     check("point_scalar_mul_fp2", f"K3 scalar_mul chain fp2 ({h}, {L2}), {dbls + adds} point ops", got, want_p, c_ms,
           p_ms, nbytes=(h * 6 * L2 + h * 16) * 4, imads=prods * imad12)
     cb_ = report.rows["point_scalar_mul_fp2"]["bound_ms"]
+    op12 = op_latency(BLS12_381_FQ, P1k)
+    print(f"K3 Fq2 chain entries: one point op in series {op12 * 1e3:.3f} us at 12 words (a one-point chain over "
+          f"2^256 - 1, 510 ops) | {card}", flush=True)
     serial = longest * lat[12]
     print(f"K3 scalar_mul chain fp2: == native; {c_ms:.4f} ms, bound {cb_:.4f} ms (operations), ms / bound "
           f"{c_ms / cb_:.1f}; serial bound {serial:.4f} ms (the longest chain's {longest} product levels, 3 a "
@@ -832,6 +893,8 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
               f"({', '.join(f'{t:.2f}' for t in runs_f)}), {(1 << lg) / ms_f * 1e3:.0f} points/s; inverse "
               f"{ms_i:.2f} ms | {card}", flush=True)
         if curve is BN254_G2:
+            print(f"K3 Fq2 chain entries: one point op in series {op_latency(fq, Pe) * 1e3:.3f} us at 8 words "
+                  f"| {card}", flush=True)
             tw = kern._domain_tensors(lg, False)[0]
             hh = 1 << (lg - 1)
             want, p_ms = cuda_ms_once(lambda: ec_fft_stage_plain(fq, Pe, tw, 0, ext=2))
@@ -937,7 +1000,8 @@ def main() -> int:
     nc = native_curve(BLS12_381_G1)
     nfr = native_field(BLS12_381_FR)
     t_native = time.perf_counter() - t0
-    print(f"build: kernels {t_build:.1f} s (0 = already built), native {t_native:.1f} s", flush=True)
+    print(f"build: kernels {t_build:.1f} s (0 = already built), native {t_native:.1f} s; nvcc seconds a unit "
+          f"(all started together): {build.unit_seconds()}", flush=True)
     for ln in ptxas_summary(build.ptxas_report()):
         print(f"ptxas: {ln}", flush=True)
     print(f"sass: K1 mont_mul<12> (one 12-word product, its loads and stores): "

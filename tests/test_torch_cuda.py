@@ -826,3 +826,99 @@ def test_g2_ec_fft_matches_native(cuda):
     back = kern.radix_ec_fft(out, inverse=True)
     ops = kern.ops
     assert all(torch.equal(a, b) for a, b in zip(ops.to_affine(back), ops.to_affine(P)))
+
+
+# -- G2: the geometries of the Fq2 kernels (two lanes a row; a tile of 16 lanes a chain)
+
+
+def _g2_edge_rows(ops, n):
+    """_point_rows' P, Q, A (identity, P == Q, P == -Q, both identity, 0 and
+    p - 1) at n rows (n >= 8), with rows 6 and 7 a garbage identity (z = 0,
+    x and y those of a point) in P and in Q."""
+    P, Q, A = _point_rows(ops, n)
+    P[2][6] = 0
+    Q[2][7] = 0
+    return P, Q, A
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_point_kernel_row_counts(cuda, curve):
+    """The Fq2 point kernel == its plain version at row counts that are odd
+    and not a multiple of a block's 64 rows (128 lanes, two a row): 1, 3,
+    63, 65, 127, 129, every op, the edge rows among the first ones."""
+    from tpu_ec_torch import curves
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, Q, A = _g2_edge_rows(ops, 130)
+    for n in (1, 3, 63, 65, 127, 129):
+        p, q, a = ([c[:n] for c in X] for X in (P, Q, A))
+        for op, ins in (("add", [*p, *q]), ("add_mixed", [*p, *a]), ("double", [*p]), ("add_mixed", [*p[:2], *a])):
+            got, want = point_op(spec.base, op, ins, ext=2), point_op_plain(spec.base, op, ins, ext=2)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (n, op, len(ins))
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_g2_point_kernel_scan_views(cuda, curve, offset):
+    """The add as the scan engine calls it: P and Q column views of fused
+    (n, 3 * 2L) row blocks (row stride 3 * 2L), keep, out= a fused block;
+    offset 1 puts every row off its 16-byte alignment (the kernel's scalar
+    loads and stores)."""
+    from tpu_ec_torch import curves
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    P, Q, _ = _g2_edge_rows(ops, 45)
+    n, L = P[0].shape[0], ops.width
+    keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+    keep[1::4] = True
+    blocks = []
+    for X in (P, Q):
+        b = torch.zeros((n, 3 * L + offset), dtype=torch.int32, device=cuda)
+        b[:, offset:] = torch.cat(X, dim=1)
+        blocks.append(b[:, offset:])
+    views = [b[:, k * L : (k + 1) * L] for b in blocks for k in range(3)]
+    dst = torch.full((n, 3 * L + offset), -1, dtype=torch.int32, device=cuda)
+    got = point_op(spec.base, "add", views, keep=keep, out=dst[:, offset:], ext=2)
+    want = point_op_plain(spec.base, "add", [*P, *Q], keep, ext=2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(dst[:, offset:], torch.cat(want, dim=1))
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_g2_chains_odd_tiles(cuda, curve):
+    """The Fq2 chain entries at tile counts that leave a warp's second tile
+    empty (16 lanes a chain, two chains a warp): the scalar multiplication at
+    n = 1, 3 and 13 rows of _chain_rows (scalars 0, 1, 2, r - 1, r + 2: its
+    last add meets acc == P; the identity and a garbage identity), per row
+    and one scalar for all; the Horner at C = 1, 3 and 5 chunks; the stage
+    entry on 3 transforms of 2 and of 4 points (3 and 6 butterflies), every
+    stage.  Each == its plain version."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.kernels.point import (chain_tile, ec_fft_stage, ec_fft_stage_plain, horner, horner_plain,
+                                            point_scalar_mul, scalar_mul_plain)
+    from tpu_ec_torch.ops.ec_fft import get_ec_domain
+
+    spec = getattr(curves, curve)
+    assert chain_tile(spec.base, 2) == 16
+    ops = PointOps(spec, cuda)
+    P, k = _chain_rows(ops, cuda, n=16)
+    for n in (1, 3, 13):
+        p = [c[:n] for c in P]
+        for kk in (k[:n], k[3]):
+            got = point_scalar_mul(spec.base, p, kk, ext=2)
+            assert all(torch.equal(g, w) for g, w in zip(got, scalar_mul_plain(spec.base, p, kk, ext=2))), n
+    kinds = ("same", "cancel", "garbage", "zero", "top", "random")
+    for C in (1, 3, 5):
+        S = _horner_edge_sums(ops, C, 3, kinds)
+        assert all(torch.equal(g, h) for g, h in zip(horner(spec.base, S, 3, ext=2),
+                                                     horner_plain(spec.base, S, 3, ext=2))), C
+    _, Pt = _points(ops, 12)
+    for lg in (1, 2):
+        Y = [c[: 3 << lg].reshape(3, 1 << lg, -1).clone() for c in Pt]
+        tw = torch.as_tensor(get_ec_domain(spec, lg).twiddle_scalars.astype(np.int64)).to(cuda, torch.int32)
+        for s in range(lg):
+            got, want = ec_fft_stage(spec.base, Y, tw, s, ext=2), ec_fft_stage_plain(spec.base, Y, tw, s, ext=2)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (lg, s)
+            Y = list(want)

@@ -37,10 +37,11 @@ extern "C" int tec_ec_fft_stage(int nw, const void* const* in, long long in_stri
   return stage_entry<1>(nw, in, in_stride, out, tw, batches, log_n, stage, fc, stream);
 }
 
-// The lanes a field element of nw words takes in chain.cuh's three chain
-// kernels (both coordinate fields).
-extern "C" int tec_chain_tile(int nw) {
-  return nw == 8 || nw == 12 ? kTile : 0;
+// The lanes of a chain in chain.cuh's three chain kernels at nw words and
+// ext (1: Fq, G1; 2: Fq2, G2).
+extern "C" int tec_chain_tile(int nw, int ext) {
+  if (nw != 8 && nw != 12) return 0;
+  return ext == 1 ? kTile : ext == 2 ? kTile2 : 0;
 }
 
 // out = a b^steps R^-steps, canonical, by `steps` products in series on one

@@ -23,25 +23,29 @@
 // ops' product latencies in series: at best its levels of products (below)
 // times one product's latency (tec_mul_chain measures that).
 //
-// Design.  A tile of kTile lanes runs each chain.  The formulas are
-// written in levels of independent products (3 a doubling, 5 an add), and
-// the lanes compute a level's products side by side, each with field.cuh's
-// one-thread product (field_tile.cuh TileProducts), so an op's critical
-// path is its levels, not its products.  Every lane holds every value and
-// runs the adds and subtracts, so each branch (identity, P == Q, the
-// scalar's bit, the chain's `same` flag) agrees across the tile.  Tiles of
-// consecutive butterflies share a warp, so from stage log2(32 / T) on the
-// tiles of a warp hold one scalar and the warp does not diverge either;
-// blocks of one warp spread a 2^11 stage, or an AMT slab's 1024 Horner
-// chains, over the SMs.  The rare P == Q doubling of the stage's adds runs
-// in a separate non-inlined function that reads P again; in the Horner and
-// the scalar multiplication it is the chain's next doubling.
+// Design.  A tile of lanes runs each chain (kTile = 4 on G1, kTile2 = 16
+// on G2).  The formulas are written in levels of independent products (3 a
+// doubling, 5 an add), and the lanes compute a level's products side by
+// side, each with field.cuh's one-thread product (field_tile.cuh), so an
+// op's critical path is its levels, not its products.  On G1 every lane
+// holds every value (TileProducts); on G2 each half of the tile holds one
+// component of every Fq2 value (TileProducts2); either way the lanes run
+// the adds and subtracts themselves, and each branch (identity, P == Q,
+// the scalar's bit, the chain's `same` flag) agrees across the tile.
+// Tiles of consecutive butterflies share a warp, so from stage log2(32 /
+// T) on (T the tile's lanes: stage 3 on G1, stage 1 on G2) the tiles of a
+// warp hold one scalar and the warp does not diverge either; blocks of one
+// warp spread a 2^11 stage, or an AMT slab's 1024 Horner chains, over the
+// SMs.  The rare P == Q doubling of the stage's adds runs in a separate
+// non-inlined function that reads P again; in the Horner and the scalar
+// multiplication it is the chain's next doubling.
 //
 // G1 and G2.  The formulas take the tile field as a type: TileProducts (Fq)
-// for G1, TileProducts2 (Fq2, a level of N products 3N Fq products across
-// the same 4 lanes) for G2.  The G1 instances are chain.cu's; the G2 ones
-// are g2_horner.cu's, g2_scalar_mul.cu's and g2_ec_fft_stage.cu's, one
-// compile each, so that the widest instances build side by side.
+// for G1, TileProducts2 (Fq2: 3 Fq products an Fq2 product, so 16 lanes
+// run a level of up to 4 in one round) for G2.  The G1 instances are
+// chain.cu's; the G2 ones are g2_horner.cu's, g2_scalar_mul.cu's and
+// g2_ec_fft_stage.cu's, one compile each, so that the widest instances
+// build side by side.
 #pragma once
 
 #include <type_traits>
@@ -53,16 +57,23 @@ namespace {
 using tec::Fe;
 using tec::FieldConsts;
 
-// The lanes of a chain, for both word counts: the add's widest levels hold
-// 4 products, and 4 lanes ran fastest of the sizes timed (PERF.md).
+// The lanes of a G1 chain, for both word counts: the add's widest levels
+// hold 4 products, and 4 lanes ran fastest of the sizes timed (PERF.md).
 constexpr int kTile = 4;
+// The lanes of a G2 chain: 16 run a level of up to 4 Fq2 products (the
+// add's widest) in one round; the tile-size sweep (PERF.md) builds it with
+// other values.
+#ifndef TEC_FP2_TILE
+#define TEC_FP2_TILE 16
+#endif
+constexpr int kTile2 = TEC_FP2_TILE;
 constexpr int kChainThreads = 32;  // one warp a block: a chain is serial, so spread them over the SMs
 constexpr int kScalarWords = 8;    // Fr of both curves: 256-bit plain scalars, 16 half-limbs
 
 // The tile field at ext 1 (Fq, G1) or 2 (Fq2, G2).
 template <int NW, int EXT>
 using Field = typename std::conditional<EXT == 1, tec::TileProducts<NW, kTile>,
-                                       tec::TileProducts2<NW, kTile>>::type;
+                                       tec::TileProducts2<NW, kTile2>>::type;
 
 struct ChainArgs {
   const int32_t* in[6];  // X Y Z of P (the stage: of the input, then of its output again)
@@ -268,7 +279,7 @@ __device__ __forceinline__ void scalar_chain(const Fd& f, const SP& P, const Fe<
 template <class Fd>
 __global__ void __launch_bounds__(kChainThreads)
     horner_kernel(const __grid_constant__ ChainArgs args, int windows, int w, const __grid_constant__ FieldConsts fc) {
-  const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / Fd::kLanes;
   if (c >= args.n) return;  // the whole tile
   const Fd f(fc);
   RegPoint<Fd> res{f.zero(), f.zero(), f.zero()};
@@ -306,7 +317,7 @@ template <class Fd>
 __global__ void __launch_bounds__(kChainThreads)
     scalar_mul_kernel(const __grid_constant__ ChainArgs args, const int32_t* k, long long k_stride,
                       const __grid_constant__ FieldConsts fc) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / Fd::kLanes;
   if (i >= args.n) return;  // the whole tile
   const Fd f(fc);
   RegPoint<Fd> acc;
@@ -326,7 +337,7 @@ template <class Fd>
 __global__ void __launch_bounds__(kChainThreads)
     ec_fft_stage_kernel(const __grid_constant__ ChainArgs args, const int32_t* tw, long long half, int s,
                         const __grid_constant__ FieldConsts fc) {
-  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / Fd::kLanes;
   if (g >= args.n) return;  // the whole tile
   const Fd f(fc);
   const long long t = g / half, i = g - t * half;
@@ -356,9 +367,10 @@ ChainArgs make_args(const void* const* in, const long long* in_stride, int n_in,
   return a;
 }
 
-// Threads and blocks for n tiles of kTile lanes, kChainThreads a block.
+// Threads and blocks for n tiles of Fd's lanes, kChainThreads a block.
+template <class Fd>
 void geometry(long long n, unsigned& blocks, int& threads) {
-  const long long lanes = n * kTile;
+  const long long lanes = n * Fd::kLanes;
   threads = lanes < kChainThreads ? (int)lanes : kChainThreads;
   blocks = (unsigned)((lanes + threads - 1) / threads);
 }
@@ -367,7 +379,7 @@ template <class Fd>
 int launch_horner(const ChainArgs& a, int windows, int w, const FieldConsts& c, cudaStream_t s) {
   unsigned blocks;
   int threads;
-  geometry(a.n, blocks, threads);
+  geometry<Fd>(a.n, blocks, threads);
   horner_kernel<Fd><<<blocks, threads, 0, s>>>(a, windows, w, c);
   return (int)cudaGetLastError();
 }
@@ -377,7 +389,7 @@ int launch_scalar_mul(const ChainArgs& a, const int32_t* k, long long k_stride, 
                       cudaStream_t s) {
   unsigned blocks;
   int threads;
-  geometry(a.n, blocks, threads);
+  geometry<Fd>(a.n, blocks, threads);
   scalar_mul_kernel<Fd><<<blocks, threads, 0, s>>>(a, k, k_stride, c);
   return (int)cudaGetLastError();
 }
@@ -387,7 +399,7 @@ int launch_stage(const ChainArgs& a, const int32_t* tw, long long half, int stag
                  cudaStream_t s) {
   unsigned blocks;
   int threads;
-  geometry(a.n, blocks, threads);
+  geometry<Fd>(a.n, blocks, threads);
   ec_fft_stage_kernel<Fd><<<blocks, threads, 0, s>>>(a, tw, half, stage, c);
   return (int)cudaGetLastError();
 }

@@ -18,13 +18,19 @@
 // 5).  Tiles of one warp may take different branches: every shuffle names
 // the tile's lanes only.
 //
-// TileProducts2 is the same core on Fq2 (G2's coordinates, field2.cuh's
-// Fe2): a level of N Fq2 products is a level of 3N independent Fq products
-// (a0 b0, a1 b1, (a0 + a1)(b0 + b1) each, the Karatsuba of field2.cuh),
-// spread over the lanes in rounds as above; each lane forms its own
-// product's operands (a lazy add, or a component as it is), so no lane
-// holds the 3N operands at once, and each Fq2 result is combined as soon
-// as its three products are in.  A square goes through the same product.
+// TileProducts2 is the same core on Fq2 (G2's coordinates, c0 + c1 u):
+// the lower half of the tile holds c0 of every value and runs its adds and
+// subtracts, the upper half c1, so a lane holds one Fq element a value, as
+// on G1.  An Fq2 product is 3 Fq products (a0 b0, a1 b1, (a0 + a1)(b0 +
+// b1), the Karatsuba of field2.cuh), each on a lane of its own: a tile of
+// 16 lanes runs a level of up to 4 Fq2 products in one round (smaller
+// tiles in rounds of T / 4).  Each lane's product in a level is fixed by
+// its lane number, so it selects its operand from the level's (one
+// candidate a product in the round); the lane of the third product takes
+// its partner component from the lower half (2 NW shuffles), the lanes of
+// c0 and c1 gather the other products (2 NW shuffles), and each half
+// receives its component of each result (NW shuffles a product).  A zero
+// test combines both halves.  A square goes through the same product.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -35,11 +41,26 @@ namespace tec {
 
 namespace cg = cooperative_groups;
 
+// a - b, plus m where that borrows (field.cuh sub_mod's value), without a
+// branch: tiles of one warp hold different values, and a data-dependent
+// branch would split the warp.
+template <int NW>
+__device__ __forceinline__ Fe<NW> sub_masked(const Fe<NW>& a, const Fe<NW>& b, const uint32_t* m) {
+  Fe<NW> d, w;
+  const uint32_t mask = 0u - sub_words<NW>(d, a, b.w);
+  add_cc(w.w[0], d.w[0], m[0] & mask);
+#pragma unroll
+  for (int i = 1; i < NW - 1; ++i) addc_cc(w.w[i], d.w[i], m[i] & mask);
+  addc(w.w[NW - 1], d.w[NW - 1], m[NW - 1] & mask);
+  return w;
+}
+
 // A level of independent products split across the lanes of a tile; every
 // lane holds whole elements.
 template <int NW, int T>
 struct TileProducts {
   static_assert(NW % T == 0, "the tile size must divide the word count");
+  static constexpr int kLanes = T;
   using E = Fe<NW>;
 
   cg::thread_block_tile<T> tile;
@@ -76,15 +97,14 @@ struct TileProducts {
 
   __device__ __forceinline__ E add(const E& a, const E& b) const { return fe_add_lazy<NW>(a, b, fc); }
 
-  // a - b, plus 2p where that borrows, without a branch: tiles of one warp
-  // hold different values, and a data-dependent branch would split the warp.
-  __device__ __forceinline__ E sub(const E& a, const E& b) const { return sub_masked(a, b, fc.p2); }
+  // a - b, plus 2p where that borrows, without a branch.
+  __device__ __forceinline__ E sub(const E& a, const E& b) const { return sub_masked<NW>(a, b, fc.p2); }
 
   __device__ __forceinline__ E dbl(const E& a) const { return fe_dbl_lazy<NW>(a, fc); }
 
   __device__ __forceinline__ E canon(const E& a) const { return fe_canon<NW>(a, fc); }
 
-  __device__ __forceinline__ E neg(const E& a) const { return sub_masked(zero(), a, fc.p); }
+  __device__ __forceinline__ E neg(const E& a) const { return sub_masked<NW>(zero(), a, fc.p); }
 
   static __device__ __forceinline__ E zero() { return fe_zero<NW>(); }
 
@@ -96,88 +116,96 @@ struct TileProducts {
   // Every lane stores the same value: a lane that reads the row back (the
   // EC-FFT stage's a - b) reads its own store.
   static __device__ __forceinline__ void store(int32_t* row, const E& a) { store_fe<NW>(row, a); }
-
- private:
-  // a - b, plus m where that borrows (field.cuh sub_mod's value).
-  static __device__ __forceinline__ E sub_masked(const E& a, const E& b, const uint32_t* m) {
-    E d, w;
-    const uint32_t mask = 0u - sub_words<NW>(d, a, b.w);
-    add_cc(w.w[0], d.w[0], m[0] & mask);
-#pragma unroll
-    for (int i = 1; i < NW - 1; ++i) addc_cc(w.w[i], d.w[i], m[i] & mask);
-    addc(w.w[NW - 1], d.w[NW - 1], m[NW - 1] & mask);
-    return w;
-  }
 };
 
-// A level of independent Fq2 products split across the lanes of a tile;
-// every lane holds whole Fq2 elements.
+// A level of independent Fq2 products split across the lanes of a tile:
+// the lower half of the tile holds c0 of every Fq2 value, the upper half
+// c1, so E is this lane's component.
 template <int NW, int T>
 struct TileProducts2 {
-  using Base = TileProducts<NW, T>;
-  using E = Fe2<NW>;
-  using Fq = Fe<NW>;
+  static_assert(T >= 4 && T <= 32 && (T & (T - 1)) == 0, "a tile is 4 to 32 lanes, a power of two");
+  static constexpr int kLanes = T;
+  static constexpr int kHalf = T / 2;  // the lanes of one component
+  static constexpr int kPer = T / 4;   // Fq2 products a round
+  using E = Fe<NW>;
 
-  Base base;
+  cg::thread_block_tile<T> tile;
+  const FieldConsts& fc;
+  int lane;
+  bool hi;  // this lane holds c1
 
-  __device__ __forceinline__ TileProducts2(const FieldConsts& c) : base(c) {}
+  __device__ __forceinline__ TileProducts2(const FieldConsts& c)
+      : tile(cg::tiled_partition<T>(cg::this_thread_block())), fc(c), lane((int)tile.thread_rank()),
+        hi(lane >= kHalf) {}
 
-  // r_k = a_k * b_k (lazy): the Fq products q = 3k + m, m = 0: a0 b0, 1:
-  // a1 b1, 2: (a0 + a1)(b0 + b1), in rounds of T, lane j computing q = r0 +
-  // j (the last round's spare lanes repeat q = r0); every lane receives
-  // each result, and r_k is formed in the round that completes its three.
+  // r_k = a_k * b_k (lazy), kPer products a round; product j of a round on
+  // lanes j (a0 b0), kHalf + j (a1 b1) and kHalf + kPer + j ((a0 + a1)(b0 +
+  // b1), its a0 and b0 from lane kPer + j); lane j receives a1 b1 and forms
+  // c0 = aa - bb, lane kHalf + kPer + j receives aa and bb and forms c1 = o -
+  // aa - bb, and each half receives its component from them.
   template <int N>
   __device__ __forceinline__ void mul_many(E (&r)[N], const E (&a)[N], const E (&b)[N]) const {
-    const int lane = (int)base.tile.thread_rank();
-    Fq z[3 * N];
+    const int q = lane & (kHalf - 1);  // the lane's place in its half
+    const int j = q & (kPer - 1);      // its product in a round
+    const bool third = hi && q >= kPer;
 #pragma unroll
-    for (int r0 = 0; r0 < 3 * N; r0 += T) {
-      // lane's operands: x = xa + xb, y = ya + yb (lazy adds; xb = 0 unless m = 2)
-      Fq xa = a[r0 / 3].c0, ya = b[r0 / 3].c0, xb = Base::zero(), yb = Base::zero();
-      pick(xa, ya, xb, yb, a[r0 / 3], b[r0 / 3], r0 % 3, true);
+    for (int k0 = 0; k0 < N; k0 += kPer) {
+      E x = a[k0], y = b[k0];
 #pragma unroll
-      for (int q = r0 + 1; q < r0 + T && q < 3 * N; ++q) pick(xa, ya, xb, yb, a[q / 3], b[q / 3], q % 3, lane == q - r0);
-      const Fq p = mul_eo<NW>(base.add(xa, xb), base.add(ya, yb), base.fc);
-#pragma unroll
-      for (int q = r0; q < r0 + T && q < 3 * N; ++q) {
-#pragma unroll
-        for (int i = 0; i < NW; ++i) z[q].w[i] = base.tile.shfl(p.w[i], q - r0);
+      for (int k = k0 + 1; k < k0 + kPer && k < N; ++k) {
+        x = pick(j == k - k0, a[k], x);
+        y = pick(j == k - k0, b[k], y);
       }
+      const E rx = xor_half(x), ry = xor_half(y);
+      const E p = mul_part<NW>(pick(third, add(x, rx), x), pick(third, add(y, ry), y), fc);
+      E s1, s2;
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        if (3 * k + 2 >= r0 && 3 * k + 2 < r0 + T) {
-          const Fq& aa = z[3 * k];
-          const Fq& bb = z[3 * k + 1];
-          r[k] = E{base.sub(aa, bb), base.sub(base.sub(z[3 * k + 2], aa), bb)};
-        }
+      for (int i = 0; i < NW; ++i) {
+        s1.w[i] = tile.shfl(p.w[i], (hi ? q - kPer : lane + kHalf) & (T - 1));
+        s2.w[i] = tile.shfl(p.w[i], (kHalf + q - kPer) & (T - 1));
+      }
+      const E c01 = sub(p, s1);
+      const E c = pick(third, sub(c01, s2), c01);
+#pragma unroll
+      for (int k = k0; k < k0 + kPer && k < N; ++k) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) r[k].w[i] = tile.shfl(c.w[i], hi ? kHalf + kPer + k - k0 : k - k0);
       }
     }
   }
 
-  __device__ __forceinline__ E add(const E& a, const E& b) const { return E{base.add(a.c0, b.c0), base.add(a.c1, b.c1)}; }
-  __device__ __forceinline__ E sub(const E& a, const E& b) const { return E{base.sub(a.c0, b.c0), base.sub(a.c1, b.c1)}; }
-  __device__ __forceinline__ E dbl(const E& a) const { return E{base.dbl(a.c0), base.dbl(a.c1)}; }
-  __device__ __forceinline__ E canon(const E& a) const { return E{base.canon(a.c0), base.canon(a.c1)}; }
-  __device__ __forceinline__ E neg(const E& a) const { return E{base.neg(a.c0), base.neg(a.c1)}; }
-  static __device__ __forceinline__ E zero() { return E{Base::zero(), Base::zero()}; }
-  static __device__ __forceinline__ bool is_zero(const E& a) { return Base::is_zero(a.c0) && Base::is_zero(a.c1); }
-  static __device__ __forceinline__ E load(const int32_t* row) { return Ext2<NW>::load(row); }
-  static __device__ __forceinline__ void store(int32_t* row, const E& a) { Ext2<NW>::store(row, a); }
+  __device__ __forceinline__ E add(const E& a, const E& b) const { return fe_add_lazy<NW>(a, b, fc); }
+  __device__ __forceinline__ E sub(const E& a, const E& b) const { return sub_masked<NW>(a, b, fc.p2); }
+  __device__ __forceinline__ E dbl(const E& a) const { return fe_dbl_lazy<NW>(a, fc); }
+  __device__ __forceinline__ E canon(const E& a) const { return fe_canon<NW>(a, fc); }
+  __device__ __forceinline__ E neg(const E& a) const { return sub_masked<NW>(zero(), a, fc.p); }
+  static __device__ __forceinline__ E zero() { return fe_zero<NW>(); }
+
+  // The Fq2 value is zero: both halves' components, so the tile agrees.
+  __device__ __forceinline__ bool is_zero(const E& a) const {
+    const int z = fe_is_zero<NW>(a);
+    return (z & tile.shfl_xor(z, kHalf)) != 0;
+  }
+
+  // This lane's component of a row (c0, then c1).  Every lane of a half
+  // stores the same value: a lane that reads the row back (the EC-FFT
+  // stage's a - b) reads its own store.
+  __device__ __forceinline__ E load(const int32_t* row) const { return load_fe<NW>(row + (hi ? 2 * NW : 0)); }
+  __device__ __forceinline__ void store(int32_t* row, const E& a) const { store_fe<NW>(row + (hi ? 2 * NW : 0), a); }
 
  private:
-  // Where `take`: the operands of Fq product m of (a, b) (branch-free
-  // selects: tiles of one warp hold different values).
-  static __device__ __forceinline__ void pick(Fq& xa, Fq& ya, Fq& xb, Fq& yb, const E& a, const E& b, int m,
-                                              bool take) {
-    const Fq& sa = m == 1 ? a.c1 : a.c0;
-    const Fq& sb = m == 1 ? b.c1 : b.c0;
+  // the other half's component of what the lane kHalf away holds
+  __device__ __forceinline__ E xor_half(const E& a) const {
+    E r;
 #pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      xa.w[i] = take ? sa.w[i] : xa.w[i];
-      ya.w[i] = take ? sb.w[i] : ya.w[i];
-      xb.w[i] = take ? (m == 2 ? a.c1.w[i] : 0u) : xb.w[i];
-      yb.w[i] = take ? (m == 2 ? b.c1.w[i] : 0u) : yb.w[i];
-    }
+    for (int i = 0; i < NW; ++i) r.w[i] = tile.shfl_xor(a.w[i], kHalf);
+    return r;
+  }
+  static __device__ __forceinline__ E pick(bool take, const E& a, const E& b) {
+    E r;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) r.w[i] = take ? a.w[i] : b.w[i];
+    return r;
   }
 };
 

@@ -27,41 +27,18 @@
 // instead of adding: where(~keep, P + Q, P)), and the mixed add an affine
 // P (z omitted), so the pair MSM writes its fused rows directly.
 //
-// G1 and G2.  The formulas are written against a coordinate-field policy
-// (field2.cuh): Ext1 (Fq) for G1, Ext2 (Fq2, each product 3 Fq products, a
-// square 2) for G2, which tpu_ec runs on its jnp formulas only.  An Fq2
-// element is twice as wide, so the Fq2 instances run at most 255 registers
-// (one block of 128 threads an SM guaranteed) and may spill: a simple
-// kernel, one thread a point.  The instances are point.cu's (G1) and
-// g2_point.cu's (G2), one compile each, so the two build side by side.
+// The G2 (Fq2) instances are g2_point.cu's, a kernel body of their own on
+// two lanes a row; both take point_args.cuh's arguments.
 #pragma once
 
-#include <type_traits>
-
 #include "field2.cuh"
+#include "point_args.cuh"
 
 namespace {
 
 using tec::FieldConsts;
 
-constexpr int kAdd = 0, kAddMixed = 1, kDouble = 2;
-constexpr int kThreads = 128;
-// G1: 4 blocks of 4 warps an SM, <= 128 registers; G2: 1, <= 255
-template <class F>
-constexpr int kMinBlocks = F::kExt == 1 ? 4 : 1;
-
-// The coordinate field at ext 1 (Fq) or 2 (Fq2).
-template <int NW, int EXT>
-using Field = typename std::conditional<EXT == 1, tec::Ext1<NW>, tec::Ext2<NW>>::type;
-
-struct PointArgs {
-  const int32_t* in[6];  // X1 Y1 Z1 X2 Y2 Z2 (add_mixed: X1 Y1 Z1 X2 Y2; Z1 null: P affine)
-  long long in_stride[6];
-  const uint8_t* keep;   // per row: copy P instead of adding; null: add every row
-  int32_t* out[3];
-  long long out_stride;
-  long long n;
-};
+constexpr int kMinBlocks = 4;  // 4 blocks of 4 warps an SM: <= 128 registers
 
 // A point operand read from device memory at each use: coordinates k,
 // k + 1, k + 2 of the kernel's arguments at row i, each address formed
@@ -197,7 +174,7 @@ __device__ __noinline__ void double_to(const PointArgs* a, int k, long long i, l
 }
 
 template <class F, int OP>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<F>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     point_kernel(const __grid_constant__ PointArgs args, const __grid_constant__ FieldConsts fc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= args.n) return;
@@ -226,40 +203,6 @@ int launch(int op, const PointArgs& a, const FieldConsts& fc, cudaStream_t s) {
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-PointArgs make_args(int n_in, const void* const* in, const long long* in_stride,
-                    void* const* out, long long out_stride, long long n) {
-  PointArgs a;
-  for (int k = 0; k < 6; ++k) {
-    a.in[k] = k < n_in ? (const int32_t*)in[k] : nullptr;
-    a.in_stride[k] = k < n_in ? in_stride[k] : 0;
-  }
-  a.keep = nullptr;
-  for (int k = 0; k < 3; ++k) a.out[k] = (int32_t*)out[k];
-  a.out_stride = out_stride;
-  a.n = n;
-  return a;
-}
-
-// The entry's work at ext EXT: op 0 add (6 inputs), 1 add_mixed (5; in[2]
-// null: P affine), 2 double (3); nw: 32-bit words of Fq (8 or 12).  in/out:
-// arrays of device pointers to (n, 2*nw*EXT) int32 half-limb coordinates
-// with the given row strides (in int32 elements); the outputs must not
-// overlap the inputs.  keep: null, or n bytes (add, add_mixed: nonzero ->
-// out = P).  Returns the launch's CUDA error.
-template <int EXT>
-int point_entry(int op, int nw, const void* const* in, const long long* in_stride, const void* keep,
-                void* const* out, long long out_stride, long long n, const uint32_t* fc, void* stream) {
-  if (n <= 0) return 0;
-  PointArgs a = make_args(op == kDouble ? 3 : (op == kAddMixed ? 5 : 6), in, in_stride, out,
-                          out_stride, n);
-  a.keep = (const uint8_t*)keep;
-  FieldConsts c = tec::field_consts_from_host(fc);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nw == 8) return launch<Field<8, EXT>>(op, a, c, s);
-  if (nw == 12) return launch<Field<12, EXT>>(op, a, c, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -3,23 +3,26 @@
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 ``.so`` with a plain C interface, loaded with ctypes (no PyTorch headers, so
 the build takes seconds).  Each source is one nvcc process, all started
-together; K3's G2 instances have sources of their own (``g2_*.cu``, on the
-templates of ``point.cuh`` and ``chain.cuh``), so that the widest instances
-build side by side.  The library's file name embeds a hash of the sources
-and flags; it lives in the gitignored build directory
+together; K3's G2 instances have sources of their own (``g2_point.cu``,
+and ``g2_*.cu`` on the templates of ``chain.cuh``), so that the widest
+instances build side by side.  The library's file name embeds a hash of the
+sources and flags; it lives in the gitignored build directory
 (``config.build_dir("kernels")``), beside the ``-Xptxas -v`` report of the
-build.  Nothing here runs at import: the CPU tests import every module.
+build and each source's nvcc seconds.  Nothing here runs at import: the CPU
+tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -33,7 +36,7 @@ SOURCES = (
     "g2_horner.cu", "g2_scalar_mul.cu", "g2_ec_fft_stage.cu", "g2_point.cu", "chain.cu", "point.cu", "mont.cu",
     "inter.cu", "ntt.cu", "affine.cu",
 )
-HEADERS = ("field.cuh", "field2.cuh", "field_tile.cuh", "point.cuh", "chain.cuh")
+HEADERS = ("field.cuh", "field2.cuh", "field_tile.cuh", "point_args.cuh", "point.cuh", "chain.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +81,18 @@ def ptxas_report() -> str:
         return f.read()
 
 
+def unit_seconds() -> dict:
+    """{source: seconds its nvcc process took} of the build."""
+    with open(library_path() + ".seconds.json") as f:
+        return json.load(f)
+
+
+def _compile(cmd: list) -> tuple[int, str, float]:
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    return res.returncode, res.stderr, time.perf_counter() - t0
+
+
 def build() -> float:
     """Compile the library if it is not built yet; returns the seconds taken.
 
@@ -89,29 +104,21 @@ def build() -> float:
     tmp = f"{out}.tmp{os.getpid()}"
     nvcc = _nvcc()
     objs = [f"{tmp}.{os.path.splitext(src)[0]}.o" for src in SOURCES]
-    procs = [
-        subprocess.Popen(
-            [nvcc, *FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        for src, obj in zip(SOURCES, objs)
-    ]
-    reports = []
-    for src, proc in zip(SOURCES, procs):
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            for other in procs:
-                other.kill()
-                other.wait()
-            raise DeviceError(f"nvcc failed on {src} ({proc.returncode}):\n{err[-4000:]}")
-        reports.append(err)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        runs = list(pool.map(_compile, ([nvcc, *FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                                        for src, obj in zip(SOURCES, objs))))
+    for src, (rc, err, _) in zip(SOURCES, runs):
+        if rc != 0:
+            raise DeviceError(f"nvcc failed on {src} ({rc}):\n{err[-4000:]}")
     res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
     for obj in objs:
         os.remove(obj)
     if res.returncode != 0:
         raise DeviceError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     with open(out + ".ptxas.txt", "w") as f:
-        f.write("".join(reports))
+        f.write("".join(err for _, err, _ in runs))
+    with open(out + ".seconds.json", "w") as f:
+        json.dump({src: round(secs, 1) for src, (_, _, secs) in zip(SOURCES, runs)}, f)
     os.replace(tmp, out)
     return time.perf_counter() - t0
 
@@ -140,7 +147,7 @@ def load() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = args, i32
         lib.tec_mul_chain.argtypes = [i32, vp, vp, i32, vp, vp, vp]
         lib.tec_mul_chain.restype = i32
-        lib.tec_chain_tile.argtypes = [i32]
+        lib.tec_chain_tile.argtypes = [i32, i32]
         lib.tec_chain_tile.restype = i32
         lib.tec_pease_rows_fit.argtypes = [i32, i32]
         lib.tec_pease_rows_fit.restype = i32

@@ -9,7 +9,7 @@ chunk), the scalar multiplication chain of
 ``tpu_ec/curves/point.py::PointOps.scalar_mul`` (one tile a point) and one
 stage of the EC-group FFT (``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile
 a butterfly).  The kernels are ``csrc/point.cuh`` for the batched ops and
-``csrc/chain.cuh`` for the three chains, where a tile of 4 lanes runs each
+``csrc/chain.cuh`` for the three chains, where a tile of lanes runs each
 chain and computes each level of a point op's independent products side by
 side (``csrc/field_tile.cuh``).  The plain version below evaluates the same
 formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
@@ -18,10 +18,11 @@ bit-identical to ``tpu_ec``'s PointOps.
 
 Every entry takes ``ext``: 1 for G1 (coordinates (..., L) in Fq), 2 for G2
 (coordinates (..., 2L) in Fq2, c0 then c1).  tpu_ec runs G2 on its jnp
-formulas only (no Pallas kernel); the port runs it on Fq2 instances of the
-same kernels (``csrc/field2.cuh``; the ``csrc/g2_*.cu`` units, C entries
-named with "_fp2"), counted apart from the G1 launches.  A
-G2 call on the card launches them or raises, like any other.
+formulas only (no Pallas kernel); the port runs it on Fq2 kernels of its
+own (the ``csrc/g2_*.cu`` units, C entries named with "_fp2"): the batched
+ops on two lanes a row (``csrc/g2_point.cu``), the chains on a tile of 16
+lanes (``chain_tile(spec, 2)``), counted apart from the G1 launches.  A G2
+call on the card launches them or raises, like any other.
 """
 
 from __future__ import annotations
@@ -455,11 +456,12 @@ def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor, ext: int = 1) -> 
     return tuple(o.reshape(shape) for o in outs)
 
 
-def chain_tile(spec: FieldSpec) -> int:
-    """The lanes that hold one element of ``spec`` in the chain entries
-    (:func:`horner`, :func:`point_scalar_mul`, :func:`ec_fft_stage`), fixed
-    in ``csrc/chain.cu``; builds the kernels on first call."""
-    return load().tec_chain_tile(spec.n_limbs // 2)
+def chain_tile(spec: FieldSpec, ext: int = 1) -> int:
+    """The lanes of one chain of the chain entries (:func:`horner`,
+    :func:`point_scalar_mul`, :func:`ec_fft_stage`) over ``spec`` at ``ext``,
+    fixed in ``csrc/chain.cuh``; builds the kernels on first call."""
+    _width(spec, ext)
+    return load().tec_chain_tile(spec.n_limbs // 2, ext)
 
 
 def mul_chain_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, steps: int) -> torch.Tensor:
