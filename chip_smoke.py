@@ -399,40 +399,14 @@ def sass_mix(lib_path: str, kernel: str) -> str:
             f"{counts['all']} instructions")
 
 
-def sass_sizes(lib_path: str) -> dict:
-    """{mangled function: SASS instructions} of the built library (cuobjdump
-    -sass), the code size of each kernel and non-inlined function."""
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    res = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
-                         timeout=300)
-    sizes, cur = {}, None
-    for ln in res.stdout.splitlines():
-        if (m := re.search(r"Function : (\S+)", ln)):
-            cur = m.group(1)
-            sizes[cur] = 0
-        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", ln):
-            sizes[cur] += 1
-    return sizes
-
-
 def fp2_build_lines(report: str, sizes: dict) -> list[str]:
     """One line per Fq2 (G2) kernel of K3: registers and spill bytes from
     ``-Xptxas -v`` (a non-inlined callee's properties are its own), SASS
     instructions from ``sizes``."""
-    rows, entry, props = {}, None, None
-    for ln in report.splitlines():
-        if (m := re.search(r"Compiling entry function '([^']+)'", ln)):
-            entry = m.group(1)
-            if kernel_label(entry).split("<")[0].endswith("fp2"):
-                rows[entry] = ["?", "?"]
-        elif (m := re.search(r"Function properties for (\S+)", ln)):
-            props = m.group(1)
-        elif (m := re.search(r"(\d+) bytes spill stores", ln)) and props in rows:
-            rows[props][1] = m.group(1)
-        elif (m := re.search(r"Used (\d+) registers", ln)) and entry in rows and rows[entry][0] == "?":
-            rows[entry][0] = m.group(1)
-    return [f"{kernel_label(k)}: {r} regs, spill stores {s} B, {sizes.get(k, 0)} SASS instructions"
-            for k, (r, s) in rows.items()]
+    from tpu_ec_torch.utils.fp2_probe import ptxas
+
+    return [f"{kernel_label(k)}: {r} regs, spill stores {sp} B, {sizes.get(k, 0)} SASS instructions"
+            for k, (r, sp) in ptxas(report).items() if kernel_label(k).split("<")[0].endswith("fp2")]
 
 
 def mont_imads(nw: int) -> int:
@@ -632,6 +606,7 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     from tpu_ec_torch.ops.msm_scan import (_fused_add, _unfuse, bucket_tail, default_window_size_scan, scan_buckets,
                                            scan_round, sorted_rows)
     from tpu_ec_torch.ops.pipeline import CommitPipeline
+    from tpu_ec_torch.utils.fp2_probe import sass_sizes
 
     t_g2 = time.perf_counter()
     rng = np.random.default_rng(SEED + 3)  # its own seed: the other phases' inputs stay the parent's

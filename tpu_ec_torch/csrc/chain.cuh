@@ -61,12 +61,8 @@ using tec::FieldConsts;
 // hold 4 products, and 4 lanes ran fastest of the sizes timed (PERF.md).
 constexpr int kTile = 4;
 // The lanes of a G2 chain: 16 run a level of up to 4 Fq2 products (the
-// add's widest) in one round; the tile-size sweep (PERF.md) builds it with
-// other values.
-#ifndef TEC_FP2_TILE
-#define TEC_FP2_TILE 16
-#endif
-constexpr int kTile2 = TEC_FP2_TILE;
+// add's widest) in one round, and ran faster than 8 and 4 (PERF.md).
+constexpr int kTile2 = 16;
 constexpr int kChainThreads = 32;  // one warp a block: a chain is serial, so spread them over the SMs
 constexpr int kScalarWords = 8;    // Fr of both curves: 256-bit plain scalars, 16 half-limbs
 

@@ -22,7 +22,8 @@
 // the lower half of the tile holds c0 of every value and runs its adds and
 // subtracts, the upper half c1, so a lane holds one Fq element a value, as
 // on G1.  An Fq2 product is 3 Fq products (a0 b0, a1 b1, (a0 + a1)(b0 +
-// b1), the Karatsuba of field2.cuh), each on a lane of its own: a tile of
+// b1): c0 = aa - bb, c1 = o - aa - bb, the Karatsuba of tpu_ec's Fp2Ops,
+// u^2 = -1 on both curves), each on a lane of its own: a tile of
 // 16 lanes runs a level of up to 4 Fq2 products in one round (smaller
 // tiles in rounds of T / 4).  Each lane's product in a level is fixed by
 // its lane number, so it selects its operand from the level's (one
@@ -35,7 +36,7 @@
 
 #include <cooperative_groups.h>
 
-#include "field2.cuh"
+#include "field.cuh"
 
 namespace tec {
 
@@ -157,7 +158,7 @@ struct TileProducts2 {
         y = pick(j == k - k0, b[k], y);
       }
       const E rx = xor_half(x), ry = xor_half(y);
-      const E p = mul_part<NW>(pick(third, add(x, rx), x), pick(third, add(y, ry), y), fc);
+      const E p = mul_eo<NW>(pick(third, add(x, rx), x), pick(third, add(y, ry), y), fc);
       E s1, s2;
 #pragma unroll
       for (int i = 0; i < NW; ++i) {

@@ -6,7 +6,11 @@
 // port sends to K3 (tpu_ec runs G2 on its jnp formulas, through no Pallas
 // kernel).  The formulas are point.cuh's, the same products of the same
 // operands, and every value is canonical where it is tested or stored, so
-// the Jacobian outputs are bit-identical to tpu_ec's G2 PointOps.
+// the Jacobian outputs are bit-identical to tpu_ec's G2 PointOps.  Fq2 =
+// Fq[u]/(u^2 + 1) on both curves; an element is (c0, c1), in device memory
+// 2 * 2NW int32 half-limbs, c0 then c1.  Values stay in field.cuh's lazy
+// domain [0, 2p): every sum or difference that feeds a product is a lazy
+// add or subtract, and a product of two values below 2p is below 2p.
 //
 // Bound on the H100: integer-ALU, as the G1 kernel.  An add is 12 Fq2
 // products and 4 squares, 44 Fq products of about 600 IMADs each for
@@ -16,23 +20,24 @@
 // Design.  Two lanes a row, one Fq2 component a lane: the even lane holds
 // c0 of every Fq2 value of the row, the odd lane c1, so a lane's state is
 // the G1 kernel's (one Fq element a value), within __launch_bounds__(128,
-// 4): at most 128 registers, 16 warps an SM, and half the straight-line
-// code of one thread a row.  An Fq2 product is 3 Fq products: a0 b0 on the
-// even lane and a1 b1 on the odd one side by side, and (a0 + a1)(b0 + b1)
-// on one lane.  The formulas take their products two independent ones at a
-// time (Pair2::mul2), so that the even lane computes the third product of
-// the first and the odd lane that of the second, side by side: 3 rounds of
-// one Fq product a lane for 2 Fq2 products.  A square is one round: (a0 +
-// a1)(a0 - a1) on the even lane, a0 a1 (doubled) on the odd one.  A lane
-// receives its partner's component of an operand or a product by NW
-// shuffles (5 NW a pair of products, 1 NW a square), a few percent of the
-// products' IMADs.  A zero test combines both lanes' flags, so the two
-// lanes of a row take the same branch (every shuffle names the row's two
-// lanes only; rows of one warp may branch apart).  The rare P == Q doubling
-// of the adds runs in a separate non-inlined function that reads P again.
+// 4): at most 128 registers, 16 warps an SM, and a lane's straight-line
+// code holds 22 Fq products, not 44.  An Fq2 product is 3 Fq products: a0
+// b0 on the even lane and a1 b1 on the odd one side by side, and (a0 +
+// a1)(b0 + b1) on one lane.  The formulas take their products two
+// independent ones at a time (Pair2::mul2), so that the even lane computes
+// the third product of the first and the odd lane that of the second, side
+// by side: 3 rounds of one Fq product a lane for 2 Fq2 products.  A square
+// is one round: (a0 + a1)(a0 - a1) on the even lane, a0 a1 (doubled) on
+// the odd one.  A lane receives its partner's component of an operand or a
+// product by NW shuffles (5 NW a pair of products, 1 NW a square), a few
+// percent of the products' IMADs.  A zero test combines both lanes' flags,
+// so the two lanes of a row take the same branch (every shuffle names the
+// row's two lanes only; rows of one warp may branch apart).  The rare P ==
+// Q doubling of the adds runs in a separate non-inlined function that
+// reads P again.
 #include <cooperative_groups.h>
 
-#include "field2.cuh"
+#include "field.cuh"
 #include "point_args.cuh"
 
 namespace {
@@ -42,10 +47,9 @@ using tec::Fe;
 using tec::FieldConsts;
 
 // Blocks of kThreads an SM that the launch bounds ask for: 4, <= 128
-// registers (the tile of the register sweep in PERF.md builds it with 3).
-#ifndef TEC_FP2_POINT_BLOCKS
-#define TEC_FP2_POINT_BLOCKS 4
-#endif
+// registers.  At 12 words the adds spill ~0.6 KB there, and still ran
+// faster than at 2 or 3 blocks (PERF.md).
+constexpr int kPairBlocks = 4;
 
 // The Fq2 field on the two lanes of a row: E is this lane's component of
 // an Fq2 value (c0 on the even lane, c1 on the odd), lazy in [0, 2p).
@@ -92,7 +96,7 @@ struct Pair2 {
   // a^2: c0 = (a0 + a1)(a0 - a1) on the even lane, c1 = 2 a0 a1 on the odd.
   __device__ __forceinline__ E sqr(const E& a) const {
     const E ao = other(a);
-    const E p = tec::mul_part<NW>(pick(odd, a, add(a, ao)), pick(odd, ao, sub(a, ao)), fc);
+    const E p = tec::mul_eo<NW>(pick(odd, a, add(a, ao)), pick(odd, ao, sub(a, ao)), fc);
     return pick(odd, dbl(p), p);
   }
 
@@ -102,9 +106,9 @@ struct Pair2 {
   // the odd.  The third products come first, so that a, b, c, d die early.
   __device__ __forceinline__ void mul2(E& r1, E& r2, const E& a, const E& b, const E& c, const E& d) const {
     const E rx = other(pick(odd, a, c)), ry = other(pick(odd, b, d));
-    const E o = tec::mul_part<NW>(add(pick(odd, c, a), rx), add(pick(odd, d, b), ry), fc);
-    const E p1 = tec::mul_part<NW>(a, b, fc);
-    const E p2 = tec::mul_part<NW>(c, d, fc);
+    const E o = tec::mul_eo<NW>(add(pick(odd, c, a), rx), add(pick(odd, d, b), ry), fc);
+    const E p1 = tec::mul_eo<NW>(a, b, fc);
+    const E p2 = tec::mul_eo<NW>(c, d, fc);
     const E q1 = other(p1), q2 = other(p2), oo = other(o);
     r1 = sub(pick(odd, sub(oo, q1), p1), pick(odd, p1, q1));
     r2 = sub(pick(odd, sub(o, q2), p2), pick(odd, p2, q2));
@@ -261,7 +265,7 @@ __device__ __noinline__ void double2_to(const PointArgs* a, long long i, const F
 // Row i = t / 2 on lanes t = 2i (c0) and 2i + 1 (c1); a block's 128 lanes
 // hold 64 rows, so both lanes of a row share a block and a warp.
 template <int NW, int OP>
-__global__ void __launch_bounds__(kThreads, TEC_FP2_POINT_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kPairBlocks)
     point2_kernel(const __grid_constant__ PointArgs args, const __grid_constant__ FieldConsts fc) {
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 1;
   if (i >= args.n) return;  // both lanes of the row

@@ -31,8 +31,36 @@
 // two lanes a row; both take point_args.cuh's arguments.
 #pragma once
 
-#include "field2.cuh"
+#include "field.cuh"
 #include "point_args.cuh"
+
+namespace tec {
+
+// The coordinate field the formulas below are written against: Fq, on
+// field.cuh's one-thread functions.
+template <int NW>
+struct Ext1 {
+  using E = Fe<NW>;
+  static __device__ __forceinline__ E mul(const E& a, const E& b, const FieldConsts& fc) {
+    return fe_mul_lazy<NW>(a, b, fc);
+  }
+  static __device__ __forceinline__ E sqr(const E& a, const FieldConsts& fc) { return fe_sqr_lazy<NW>(a, fc); }
+  static __device__ __forceinline__ E add(const E& a, const E& b, const FieldConsts& fc) {
+    return fe_add_lazy<NW>(a, b, fc);
+  }
+  static __device__ __forceinline__ E sub(const E& a, const E& b, const FieldConsts& fc) {
+    return fe_sub_lazy<NW>(a, b, fc);
+  }
+  static __device__ __forceinline__ E dbl(const E& a, const FieldConsts& fc) { return fe_dbl_lazy<NW>(a, fc); }
+  static __device__ __forceinline__ E canon(const E& a, const FieldConsts& fc) { return fe_canon<NW>(a, fc); }
+  static __device__ __forceinline__ bool is_zero(const E& a) { return fe_is_zero<NW>(a); }
+  static __device__ __forceinline__ E zero() { return fe_zero<NW>(); }
+  static __device__ __forceinline__ E one(const FieldConsts& fc) { return fe_const<NW>(fc.one); }
+  static __device__ __forceinline__ E load(const int32_t* src) { return load_fe<NW>(src); }
+  static __device__ __forceinline__ void store(int32_t* dst, const E& a) { store_fe<NW>(dst, a); }
+};
+
+}  // namespace tec
 
 namespace {
 

@@ -36,7 +36,7 @@ SOURCES = (
     "g2_horner.cu", "g2_scalar_mul.cu", "g2_ec_fft_stage.cu", "g2_point.cu", "chain.cu", "point.cu", "mont.cu",
     "inter.cu", "ntt.cu", "affine.cu",
 )
-HEADERS = ("field.cuh", "field2.cuh", "field_tile.cuh", "point_args.cuh", "point.cuh", "chain.cuh")
+HEADERS = ("field.cuh", "field_tile.cuh", "point_args.cuh", "point.cuh", "chain.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,12 +27,13 @@ power limit:
   and 255 adds, the library's chain entry), at 8 and 12 words.
 
 A variant is NAME=UNIT:FLAGS, FLAGS nvcc arguments split on commas
-(``-maxrregcount=168`` or ``-DNAME=V``), or one of the named sets below;
-with no ``--variants`` it builds the point unit as it is and under
+(``-maxrregcount=168``, or ``-DNAME=V`` where the sources read NAME: the
+knobs ``TEC_FP2_TILE``, ``TEC_FP2_POINT_BLOCKS`` and ``TEC_FP2_MUL_OUTLINE``
+of commit ca61e19), or one of the named sets below; with no
+``--variants`` it builds the point unit as it is and under
 ``-maxrregcount`` 168 and 128.  A flag "+NAME" patches a copy of the
-sources (``PATCHES``).  Every number comes from this run; a JSON
-line of all of them ends the output (also written to
-``chiprun_out/fp2_probe.json``).
+sources (``PATCHES``: the tree of commit c5496f6).  Every number comes
+from this run; a JSON line of all of them ends the output.
 """
 
 from __future__ import annotations
@@ -442,11 +443,7 @@ def main() -> int:
                 kpoint.load = load
 
     shutil.rmtree(work, ignore_errors=True)
-    line = json.dumps(res)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "fp2_probe.json"), "a") as f:
-        f.write(line + "\n")
-    print(line, flush=True)
+    print(json.dumps(res), flush=True)
     return 0
 
 
