@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (tpu_ec_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # BLS12-381 G1 at n = 2^20 (AMT batch: 2^10 x 2^10 and 2^10 x 2^12), G2 at 2^20
-    python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check (AMT chunks of 2^7)
+    python3 chip_smoke.py --log-n 14 # smaller inputs, for a quick check (AMT chunks of 2^7; phase 4h keeps its sizes)
 
 Phases, each failing the run on any error:
 
@@ -16,7 +16,9 @@ Phases, each failing the run on any error:
    version on 64): the unit of the chains' serial bounds;
 3. kernels: every kernel against its plain PyTorch version on the same card
    tensors, bit-exact, with both times and the bound of its work: K1
-   (Montgomery product), K2 (digit-NTT twiddle), K3 (point add / add_mixed
+   (Montgomery product), K2 (digit-NTT twiddle: the 2^n plan's levels, the
+   table's rows read at column // M, the final pass, and the int8-digit
+   entry into canonical rows), K3 (point add / add_mixed
    / double on 2^16 rows with identity, P == Q and P == -Q rows, the
    keep / out= entry, and K3's Horner entry at the commit's 19 windows of
    w = 14, bounded by its product levels in series), K5 (Pease stages at
@@ -105,6 +107,18 @@ Phases, each failing the run on any error:
    window sums; the chain at 1024 points; the stage at stage 0 of the
    BN254 2^11 transform), and one Fq2 point op's latency in series at 8
    and 12 words (a one-point chain over 2^256 - 1);
+4h. the digit NTT at 2^22 .. 2^26: ``FftKernel(BLS12_381_FR).radix_fft`` at
+   2^22, 2^24 and 2^26 on the default routes (its own seed), every forward
+   output against the native C++ NTT on all rows and the inverse against
+   the input; the first call's seconds (tables included), ms mean of 3 of
+   both directions, peak memory, each level's table route and whether the
+   transform runs chunked, and the K1, K2 and K2-int8 launches of a call
+   against the counts the plan predicts (``digit_launches``); at 2^26 the
+   route the thresholds did not pick, equal bit for bit, with its ms and
+   peak; BN254 Fr at 2^22 with the chunked route forced, against native;
+   ``digit_ntt_planes_batch`` at (2^13, 2^11), 16 sampled columns against
+   native and the inverse batch against the input; K2's int8 entry against
+   its plain version at the 2^26 final pass's shape, with its bound;
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -422,6 +436,7 @@ class Kernels:
     INFO = {
         "mont_mul": ("csrc/mont.cu", "tpu_ec/ops/pallas/mont.py:337"),
         "inter_twiddle": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
+        "inter_twiddle_i8": ("csrc/inter.cu", "tpu_ec/ops/ntt_digit.py:381"),
         "point": ("csrc/point.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "point_horner": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "point_horner_batch": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
@@ -905,6 +920,220 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     print(f"phase 4g: {time.perf_counter() - t_g2:.1f} s", flush=True)
 
 
+def digit_launches(dom, M: int = 1) -> tuple[dict, int]:
+    """({kernel: launches} of one digit-NTT call of 2^log_n x M with its
+    tables built, K1 launches that build the tables), from the domain's plan
+    and routes: an unchunked level is one K2 pass; a chunked one a K2 pass a
+    slice and, with factored seeds, log2(c) K1 launches for the base rows
+    and popcount(slice) for each slice's row of powers; the last GEMM is
+    one K2 pass a slice of the batch axis when chunked, and the final pass
+    K2 on int32 columns, or on int8 digits (its own entry) when chunked.  A
+    table built with K1 takes log2(n1) launches for its row of powers,
+    log2(n2) for the rows and log2(n2) - 1 squarings; factored seeds the
+    same less the rows."""
+    k1 = k2 = build = 0
+    chunked = (1 << dom.log_n) * M >= dom.chunk_min
+    log_m = dom.log_n
+    for lf in dom.plan[:-1]:
+        log_n1, n2 = log_m - lf, 1 << lf
+        route = dom.inter[(log_m, log_n1)]
+        route = route if isinstance(route, str) else "host"
+        if chunked or route == "factored":
+            nc = min(dom.chunk_count, n2)
+            k2 += nc
+            if route == "factored":
+                k1 += (n2 // nc).bit_length() - 1 + sum(bin(ci).count("1") for ci in range(nc))
+        else:
+            k2 += 1
+        if route in ("device", "factored"):
+            build += log_n1 + (lf if route == "device" else 0) + lf - 1
+        log_m, M = log_n1, M * n2
+    if chunked:
+        k2 += min(dom.chunk_count, M)
+    else:
+        k2 += 1
+    return {"mont_mul": k1, "inter_twiddle": k2, "inter_twiddle_i8": int(chunked)}, build
+
+
+def phase_ntt_large(dev, report, check, card: str) -> None:
+    """Phase 4h: the digit NTT at 2^22, 2^24 and 2^26 (``FftKernel.radix_fft``
+    on BLS12-381 Fr, through the default routes), the other route at 2^26,
+    BN254 Fr at 2^22 on the chunked route, ``digit_ntt_planes_batch`` at
+    (2^13, 2^11), and K2's int8 entry at the final pass's shape."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.fields.params import BLS12_381_FR, BN254_FR
+    from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
+    from tpu_ec_torch.native import native_field
+    from tpu_ec_torch.ops import ntt_digit as nd
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)  # its own seed: the other phases' inputs stay the parent's
+    referee = ThreadPoolExecutor(1)  # the native NTT runs beside the card's first calls (ctypes frees the GIL)
+    shifts = torch.tensor([0, 16, 32, 48], dtype=torch.int64, device=dev)
+
+    def rand_fr(spec, *shape):
+        """Random canonical elements (< p's top limb) as int32 half-limbs on the card."""
+        x = torch.randint(0, 1 << 16, (*shape, 16), generator=gen, device=dev, dtype=torch.int32)
+        x[..., -1] = torch.randint(0, int(spec.p_limbs[-1]), shape, generator=gen, device=dev, dtype=torch.int32)
+        return x
+
+    def words(x, block: int = 1 << 22):
+        """(n, 16) half-limbs on the card -> the native (n, 4) u64 words."""
+        return np.concatenate([(x[s : s + block].to(torch.int64).view(-1, 4, 4) << shifts).sum(-1).cpu().numpy()
+                               for s in range(0, x.shape[0], block)]).view(np.uint64)
+
+    def routes(dom):
+        return ", ".join(f"2^{lm}: {v if isinstance(v, str) else 'host'}" for (lm, _), v in dom.inter.items())
+
+    def run_size(spec, log_n, label, owned, report_rows=None, profile=False):
+        """First call, inverse, launches against the plan, native check, ms
+        and peaks of one size; returns the forward output."""
+        nf = native_field(spec)
+        x = rand_fr(spec, 1 << log_n)
+        want = referee.submit(nf.ntt, words(x))
+        k = FftKernel(spec, dev)
+        dom = nd.get_digit_domain(spec, log_n, False, nd.leaf_log(log_n))
+        chunked = (1 << log_n) >= dom.chunk_min
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = on_path(kernels, report if report_rows is not None else None, owned, f"{label} first call",
+                    lambda: k.radix_fft(x), rows=report_rows)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak_first = torch.cuda.max_memory_allocated()
+        per_call, build = digit_launches(dom)
+        kernels.reset_launch_counters()
+        y2 = k.radix_fft(x)
+        got = {name: kernels.launch_counters()[name] for name in per_call}
+        if got != per_call or not torch.equal(y, y2):
+            raise SystemExit(f"{label}: launches {got} != the plan's {per_call}, or a second call differs")
+        back = k.radix_fft(y, inverse=True)
+        if not torch.equal(back, x):
+            raise SystemExit(f"{label}: the inverse does not give the input back")
+        del back, y2
+        bad = int((words(y) != want.result()).any(axis=1).sum())
+        if bad:
+            raise SystemExit(f"{label}: {bad} rows disagree with the native NTT")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: k.radix_fft(x), iters=3)
+        ms_inv = cuda_ms(lambda: k.radix_fft(x, inverse=True), iters=3)
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            split, busy, others = traced(lambda: k.radix_fft(x), label)
+            print(f"profile {label}: device busy {busy:.4f} ms; hand kernels "
+                  + ", ".join(f"{name} {v[0]:.4f} ms in {v[1]}" for name, v in split.items())
+                  + "; largest other device ops " + "; ".join(f"{o[0][:90]} {o[1]:.4f} ms in {o[2]}" for o in others)
+                  + f" | {card}", flush=True)
+        print(f"{label}: plan {dom.plan}, level tables {routes(dom)}, "
+              f"{'chunked' if chunked else 'unchunked'} ({dom.chunk_count} slices from 2^"
+              f"{dom.chunk_min.bit_length() - 1}); == native NTT on all {1 << log_n} rows, inverse == input; "
+              f"first call {first_s:.2f} s (tables included, peak {peak_first / 2**30:.2f} GiB); "
+              f"{ms:.3f} ms mean of 3 forward, {ms_inv:.3f} ms inverse; peak {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held: input, output, tables); "
+              f"launches a call {got} == the plan's, tables' K1 launches {build} a direction | {card}",
+              flush=True)
+        return k, x, y, ms, peak
+
+    for log_n in (22, 24):
+        run_size(BLS12_381_FR, log_n, f"NTT 2^{log_n} BLS12-381 Fr", ("mont_mul", "inter_twiddle"))
+        torch.cuda.empty_cache()
+    dom26 = nd.get_digit_domain(BLS12_381_FR, 26, False, nd.leaf_log(26))
+    chunked26 = (1 << 26) >= dom26.chunk_min
+    owned = ("mont_mul", "inter_twiddle", "inter_twiddle_i8") if chunked26 else ("mont_mul", "inter_twiddle")
+    k, x, y, ms, peak = run_size(BLS12_381_FR, 26, "NTT 2^26 BLS12-381 Fr", owned,
+                                 report_rows={"mont_mul": "mont_mul@ntt26", "inter_twiddle": "inter_twiddle@ntt26"},
+                                 profile=True)
+    del k
+    torch.cuda.empty_cache()
+
+    # the route the constants did not pick at 2^26, on the same input
+    saved = nd._CHUNK_MIN
+    nd._CHUNK_MIN = 1 << 27 if chunked26 else 1 << 26
+    try:
+        other = "unchunked" if chunked26 else "chunked"
+        k_o = FftKernel(BLS12_381_FR, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_o = on_path(kernels, None if chunked26 else report,
+                      ("inter_twiddle",) if chunked26 else ("mont_mul", "inter_twiddle", "inter_twiddle_i8"),
+                      f"NTT 2^26 {other} first call", lambda: k_o.radix_fft(x),
+                      rows={"mont_mul": "mont_mul@ntt26", "inter_twiddle": "inter_twiddle@ntt26"})
+        torch.cuda.synchronize()
+        first_o = time.perf_counter() - t0
+        if not torch.equal(y_o, y):
+            raise SystemExit(f"NTT 2^26: the {other} route disagrees with the default route")
+        del y_o
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms_o = cuda_ms(lambda: k_o.radix_fft(x), iters=3)
+        peak_o = torch.cuda.max_memory_allocated()
+        print(f"NTT 2^26 {other} route: == the default route; first call {first_o:.2f} s; {ms_o:.3f} ms mean of "
+              f"3 vs {ms:.3f} ms default; peak {peak_o / 2**30:.2f} GiB ({(peak_o - base) / 2**30:.2f} above "
+              f"the {base / 2**30:.2f} GiB held) vs {peak / 2**30:.2f} GiB default | {card}", flush=True)
+        del k_o
+    finally:
+        nd._CHUNK_MIN = saved
+    del x, y
+    torch.cuda.empty_cache()
+
+    # BN254 Fr at 2^22 on the chunked route
+    nd._CHUNK_MIN = 1 << 22
+    try:
+        run_size(BN254_FR, 22, "NTT 2^22 BN254 Fr (chunked forced)", ("mont_mul", "inter_twiddle", "inter_twiddle_i8"))
+    finally:
+        nd._CHUNK_MIN = saved
+    torch.cuda.empty_cache()
+
+    # digit_ntt_planes_batch at (2^13, 2^11): a 2^26 four-step split's local stage on one of four shards
+    nb, B = 1 << 13, 1 << 11
+    xb = rand_fr(BLS12_381_FR, nb, B).permute(2, 0, 1).contiguous()  # (16, n, B) planes
+    yb = on_path(kernels, None, ("inter_twiddle",), f"digit_ntt_planes_batch (2^13, 2^11)",
+                 lambda: nd.digit_ntt_planes_batch(BLS12_381_FR, xb))
+    nf = native_field(BLS12_381_FR)
+    cols = torch.randperm(B, generator=gen, device=dev)[:16].tolist()
+    for b in cols:
+        if not np.array_equal(words(yb[:, :, b].T.contiguous()), nf.ntt(words(xb[:, :, b].T.contiguous()))):
+            raise SystemExit(f"digit_ntt_planes_batch: column {b} disagrees with the native NTT")
+    if not torch.equal(nd.digit_ntt_planes_batch(BLS12_381_FR, yb, True), xb):
+        raise SystemExit("digit_ntt_planes_batch: the inverse batch does not give the input back")
+    ms_b = cuda_ms(lambda: nd.digit_ntt_planes_batch(BLS12_381_FR, xb), iters=3)
+    print(f"digit_ntt_planes_batch (2^13, 2^11): 16 sampled columns == native NTT, inverse batch == input; "
+          f"{ms_b:.3f} ms mean of 3 | {card}", flush=True)
+    del xb, yb
+    torch.cuda.empty_cache()
+
+    # K2's int8 entry at the 2^26 final pass's shape: (37, 2^26) digits in,
+    # canonical (2^26, 16) rows out; its bound is bytes, 37 in and 64 out a column
+    n = 1 << 26
+    dig = torch.randint(0, 128, (37, n), generator=gen, device=dev, dtype=torch.int8)
+    c = torch.as_tensor(dom26.final_c.astype(np.int64)).to(dev, torch.int32)
+    kw = dict(canonical=True, const_t=True)
+    want, p_ms = cuda_ms_once(lambda: chunked(lambda d: inter_twiddle_plain(BLS12_381_FR, d, c, **kw), dig,
+                                              axis=1, rows=1 << 19))
+    check("inter_twiddle_i8", "K2 inter int8 entry (37, 2^26) int8 x const T -> canonical rows (2^26, 16), the "
+          "2^26 final pass", inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw), want.T,
+          cuda_ms(lambda: inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw)), p_ms,
+          nbytes=n * (37 + 16 * 4), imads=n * 2 * 153)
+    r = report.rows["inter_twiddle_i8"]
+    print(f"K2 int8 entry 2^26: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), ms / bound "
+          f"{r['ms'] / r['bound_ms']:.2f} | {card}", flush=True)
+    del dig, want
+    referee.shutdown()
+    torch.cuda.empty_cache()
+    print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=20, help="input size 2^log_n (default 20)")
@@ -1030,28 +1259,41 @@ def main() -> int:
     log_rest, M = args.log_n, 1
     for lf in dom.plan[:-1]:
         n1_log = log_rest - lf
-        T = consts["inter"][(log_rest, n1_log)]
-        n2, n1 = T.shape[1], T.shape[2]
-        tfull = T[:, :, :, None].expand(16, n2, n1, M).reshape(16, n).contiguous()
-        shapes.append((f"level {len(shapes)} (37, 2^{args.log_n}) x T (16, 2^{args.log_n}) -> int8",
-                       tfull, False, False))
-        log_rest, M = n1_log, M * n2
-    shapes.append((f"final (37, 2^{args.log_n}) x const T -> canonical (16, 2^{args.log_n})",
-                   consts["final_c"], True, True))
-    for i, (label, t16, canonical, const_t) in enumerate(shapes):
-        cols = torch.as_tensor(rng.integers(0, col_bound, (37, n), dtype=np.int64)).to(dev, torch.int32)
-        kw = dict(canonical=canonical, const_t=const_t)
-        if const_t:
-            plain = lambda: chunked(lambda c: inter_twiddle_plain(BLS12_381_FR, c, t16, **kw), cols, axis=1)
+        T = consts["inter"][(log_rest, n1_log)]  # (n2, n1, 16) rows; column i's twiddle is row i // M
+        if isinstance(T, dict):
+            break  # factored seeds: phase 4h holds K2's chunks
+        shapes.append((f"level {len(shapes)} ({dom.d_leaf}, 2^{args.log_n}) x T rows {tuple(T.shape)}, "
+                       f"t_rep {M} -> int8", T.view(-1, 16), M, dom.d_leaf))
+        log_rest, M = n1_log, M * T.shape[0]
+    shapes.append((f"final ({dom.d_leaf}, 2^{args.log_n}) x const T -> canonical (16, 2^{args.log_n})",
+                   consts["final_c"], 0, dom.d_leaf))
+    for i, (label, t16, t_rep, dc) in enumerate(shapes):
+        cols = torch.as_tensor(rng.integers(0, col_bound, (dc, n), dtype=np.int64)).to(dev, torch.int32)
+        if t_rep:
+            kw = dict(t_rep=t_rep)
+            t_cols = t16.repeat_interleave(t_rep, dim=0).T  # every column's twiddle, chunked with the columns
+            plain = lambda: chunked(lambda c, t: inter_twiddle_plain(BLS12_381_FR, c, t.T), cols, t_cols, axis=1)
         else:
-            plain = lambda: chunked(lambda c, t: inter_twiddle_plain(BLS12_381_FR, c, t, **kw),
-                                    cols, t16, axis=1)
+            kw = dict(canonical=True, const_t=True)
+            plain = lambda: chunked(lambda c: inter_twiddle_plain(BLS12_381_FR, c, t16, **kw), cols, axis=1)
         got = inter_twiddle(BLS12_381_FR, cols, t16, **kw)
         # 9 x 8 words of v * T' and of m * p, 9 words of m: 153 multiply-adds
-        bound = dict(nbytes=n * (37 * 4 + 16 * 4 + 37), imads=n * 2 * 153) if i == 0 else {}
+        bound = dict(nbytes=n * (dc * 4 + 16 * 4 + 37), imads=n * 2 * 153) if i == 0 else {}
         check("inter_twiddle", f"K2 inter {label}", got.T, plain().T,
               cuda_ms(lambda: inter_twiddle(BLS12_381_FR, cols, t16, **kw)), cuda_ms(plain, iters=1),
               **bound)
+    # K2's int8 entry: the final pass after a chunked last GEMM, (37, 2^n)
+    # digits in, canonical (2^n, 16) rows out as FftKernel takes them
+    dig = torch.as_tensor(rng.integers(0, 128, (37, n), dtype=np.int64)).to(dev, torch.int8)
+    kw = dict(canonical=True, const_t=True)
+    plain = lambda: chunked(lambda c: inter_twiddle_plain(BLS12_381_FR, c, consts["final_c"], **kw), dig, axis=1)
+    check("inter_twiddle_i8", f"K2 inter int8 entry (37, 2^{args.log_n}) int8 x const T -> canonical rows "
+          f"(2^{args.log_n}, 16)", inter_twiddle(BLS12_381_FR, dig, consts["final_c"], out_rows=True, **kw),
+          plain().T,
+          cuda_ms(lambda: inter_twiddle(BLS12_381_FR, dig, consts["final_c"], out_rows=True, **kw)),
+          cuda_ms(plain, iters=1),
+          nbytes=n * (37 + 16 * 4), imads=n * 2 * 153)
+    del dig
 
     npts = min(n, 1 << 16)
     jac, aff = random_points(nc, rng, 2 * npts)
@@ -1800,6 +2042,10 @@ def main() -> int:
     # 4g. G2: the MSM (the main path of G2), the batch, scalar multiplication,
     # the EC-FFT, a commit and K3's Fq2 instances
     phase_g2(args.log_n, dev, report, check, card, lat, imad_rate)
+
+    # 4h. the digit NTT at 2^22 .. 2^26: both routes at 2^26, BN254 chunked,
+    # the batch, K2's int8 entry at the final pass's shape
+    phase_ntt_large(dev, report, check, card)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

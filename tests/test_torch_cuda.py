@@ -59,10 +59,93 @@ def test_inter_kernel_matches_plain(cuda, canonical, const_t):
     rng = np.random.default_rng(3)
     n = 3001
     cols = torch.as_tensor(rng.integers(0, (1 << 7) * 37 * 127 * 127, (37, n))).to(cuda, torch.int32)
-    t = _field(spec, n, 4).T.copy()
-    t16 = torch.as_tensor(t[:, 7] if const_t else t).to(cuda, torch.int32).contiguous()
+    t = _field(spec, n, 4)
+    t16 = torch.as_tensor(t[7] if const_t else t).to(cuda, torch.int32).contiguous()
     kw = dict(canonical=canonical, const_t=const_t)
     assert torch.equal(inter_twiddle(spec, cols, t16, **kw), inter_twiddle_plain(spec, cols, t16, **kw))
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["to_int8", "canonical"])
+def test_inter_int8_entry_matches_plain(cuda, canonical):
+    """K2's int8-digit entry (the final pass after a chunked last GEMM),
+    with the constant twiddle, and canonical rows out as FftKernel takes
+    them."""
+    from tpu_ec_torch.kernels import inter as kinter
+
+    spec = tfp.BLS12_381_FR
+    rng = np.random.default_rng(5)
+    n = 4099
+    dig = torch.as_tensor(rng.integers(0, 128, (37, n))).to(cuda, torch.int8)
+    dig[:, 0] = 127
+    t16 = torch.as_tensor(_field(spec, 8, 6)[3]).to(cuda, torch.int32)
+    kw = dict(canonical=canonical, const_t=True)
+    before = (kinter.LAUNCHES.count, kinter.LAUNCHES_I8.count)
+    assert torch.equal(inter_twiddle(spec, dig, t16, **kw), inter_twiddle_plain(spec, dig, t16, **kw))
+    assert (kinter.LAUNCHES.count, kinter.LAUNCHES_I8.count) == (before[0], before[1] + 1)
+    if canonical:
+        got = inter_twiddle(spec, dig, t16, out_rows=True, **kw)
+        assert torch.equal(got, inter_twiddle_plain(spec, dig, t16, **kw).T)
+
+
+@pytest.mark.parametrize("t_rep", [1, 8])
+def test_inter_kernel_twiddle_rows_and_repeat(cuda, t_rep):
+    """K2 reading (nt, 16) twiddle rows (K1's layout), column i's twiddle at
+    row i // t_rep, as a four-step level over a batch M = t_rep reads its
+    table."""
+    spec = tfp.BLS12_381_FR
+    rng = np.random.default_rng(7)
+    n = 8 * 512
+    cols = torch.as_tensor(rng.integers(0, (1 << 8) * 37 * 127 * 127, (40, n))).to(cuda, torch.int32)
+    t16 = torch.as_tensor(_field(spec, n // t_rep, 8)).to(cuda, torch.int32)
+    want = inter_twiddle_plain(spec, cols, t16.repeat_interleave(t_rep, dim=0))
+    assert torch.equal(inter_twiddle(spec, cols, t16, t_rep=t_rep), want)
+    assert torch.equal(inter_twiddle_plain(spec, cols, t16, t_rep=t_rep), want)
+
+
+def test_mont_kernel_trailing_operand_and_out(cuda):
+    """K1 with b one row block repeated along a (the table doubling's
+    operand), written into a slice of a larger tensor."""
+    spec = tfp.BLS12_381_FR
+    a = torch.as_tensor(_field(spec, 6 * 1024, 9)).to(cuda, torch.int32).view(6, 1024, 16)
+    b = torch.as_tensor(_field(spec, 1024, 10)).to(cuda, torch.int32)
+    big = torch.zeros((8, 1024, 16), dtype=torch.int32, device=cuda)
+    mont_mul(spec, a, b, out=big[2:])
+    assert torch.equal(big[2:], mont_mul_plain(spec, a, b))
+    assert not big[:2].any()
+
+
+def test_device_table_matches_host_table(cuda):
+    """The Bailey table built on the card with K1 at 2^16 (the level-0 table
+    of a 2^16 transform, n2 = 2^6, n1 = 2^10) against the host table."""
+    from tpu_ec_torch.ops.ntt import get_domain
+    from tpu_ec_torch.ops.ntt_digit import inter_table288_device, inter_table288_np
+
+    spec = tfp.BLS12_381_FR
+    for inverse in (False, True):
+        omega = get_domain(spec, 16, inverse).omega
+        got = inter_table288_device(spec, omega, 16, 16, 10, cuda)
+        want = inter_table288_np(spec, omega, 16, 16, 10)
+        assert np.array_equal(got.permute(2, 0, 1).cpu().numpy(), want.astype(np.int32))
+
+
+def test_chunked_route_matches_unchunked(cuda, monkeypatch):
+    """FftKernel at 2^20 with the chunked route forced (factored seeds at the
+    2^20 level, K2's int8 entry in the final pass) against the default
+    route, both directions."""
+    from tpu_ec_torch.kernels import inter as kinter
+    from tpu_ec_torch.ops import ntt_digit
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    spec = tfp.BLS12_381_FR
+    x = torch.as_tensor(_field(spec, 1 << 20, 14)).to(cuda, torch.int32)
+    want = [FftKernel(spec, cuda).radix_fft(x, inverse=inv) for inv in (False, True)]
+    monkeypatch.setattr(ntt_digit, "_CHUNK_MIN", 1 << 20)
+    k = FftKernel(spec, cuda)
+    before = kinter.LAUNCHES_I8.count
+    for inv, w in zip((False, True), want):
+        assert torch.equal(k.radix_fft(x, inverse=inv), w)
+    assert kinter.LAUNCHES_I8.count == before + 2
+    assert ntt_digit.get_digit_domain(spec, 20, False, 8).inter[(20, 13)] == "factored"
 
 
 def _points(ops, n):

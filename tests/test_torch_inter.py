@@ -50,8 +50,8 @@ def test_inter_matches_tpu_ec(canonical, const_t):
             canonical=canonical, const_t=const_t, interpret=True,
         )
     )
-    got = inter_twiddle(
-        tfp.BLS12_381_FR, torch.as_tensor(cols), torch.as_tensor(t),
+    got = inter_twiddle(  # the port takes (n, 16) twiddle rows, tpu_ec (16, n) planes
+        tfp.BLS12_381_FR, torch.as_tensor(cols), torch.as_tensor(t if const_t else t.T.copy()),
         canonical=canonical, const_t=const_t,
     )
     assert got.dtype == (torch.int64 if canonical else torch.int8)
@@ -65,7 +65,7 @@ def test_inter_values_vs_bigint():
     p = spec.modulus
     cols, t = _inputs(3, False)
     got = limbs_to_numpy(
-        inter_twiddle_plain(spec, torch.as_tensor(cols), torch.as_tensor(t), canonical=True).T
+        inter_twiddle_plain(spec, torch.as_tensor(cols), torch.as_tensor(t.T.copy()), canonical=True).T
     )
     rinv = pow(1 << 288, -1, p)
     for j in (0, 1, 2, N - 1):

@@ -61,9 +61,19 @@ def test_digit_domain_tables_equal(log_n, inverse):
     assert np.array_equal(t.final_c, j.final_c)
 
 
-def test_digit_domain_refuses_chunked_sizes():
-    with pytest.raises(NotImplementedError):
-        tnd.DigitDomain(tfp.BLS12_381_FR, 25, False, 8)
+def test_digit_domain_refuses_chunked_sizes(monkeypatch):
+    """The port once refused domains of 2^25 and up; now such a domain takes
+    tpu_ec's routes under tpu_ec's chunk threshold: the 2^25 level keeps
+    factored seeds, below it K1 builds the tables (the host threshold
+    lowered to 2^12 so that no host table is built here)."""
+    for mod in (jnd, tnd):
+        monkeypatch.setattr(mod, "_DEVICE_TABLE_MIN", 1 << 12)
+        monkeypatch.setattr(mod, "_CHUNK_MIN", 1 << 25)
+    j = jnd.DigitDomain(jfp.BLS12_381_FR, 25, False, 8)
+    t = tnd.DigitDomain(tfp.BLS12_381_FR, 25, False, 8)
+    assert t.plan == j.plan == [7, 6, 6, 6]
+    assert t.inter == {(25, 18): "factored", (18, 12): "device", (12, 6): "device"}
+    assert j.inter == {(25, 18): "factored", (18, 12): None, (12, 6): None}
 
 
 @pytest.mark.parametrize("name", ["BLS12_381_G2", "BN254_G2"])

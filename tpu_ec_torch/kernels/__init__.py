@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (csrc/), their wrappers and plain versions.
 
-K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle``, K3 ``point.point_op``,
+K1 ``mont.mont_mul``, K2 ``inter.inter_twiddle`` (its int8-digit entry
+counted apart, ``inter_twiddle_i8``), K3 ``point.point_op``,
 ``point.horner``, ``point.point_scalar_mul`` and ``point.ec_fft_stage``
 (the last three also counted apart; ``point.mul_chain`` times one product
 of their serial bound and is on no path; the Fq2 instances of G2 have
@@ -15,7 +16,7 @@ kernel on CUDA tensors (or raises), and counts its launches.
 from . import affine, butterfly, inter, mont, ntt_leaf, point
 
 _COUNTERS = (
-    mont.LAUNCHES, inter.LAUNCHES, point.LAUNCHES, point.HORNER_LAUNCHES, point.CHAIN_LAUNCHES,
+    mont.LAUNCHES, inter.LAUNCHES, inter.LAUNCHES_I8, point.LAUNCHES, point.HORNER_LAUNCHES, point.CHAIN_LAUNCHES,
     point.STAGE_LAUNCHES, point.MUL_CHAIN_LAUNCHES, point.LAUNCHES_FP2, point.HORNER_LAUNCHES_FP2,
     point.CHAIN_LAUNCHES_FP2, point.STAGE_LAUNCHES_FP2,
     ntt_leaf.LAUNCHES, ntt_leaf.LEVEL_LAUNCHES, butterfly.LAUNCHES,

@@ -134,7 +134,7 @@ def load() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tec_mont_mul.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
         lib.tec_mont_mul.restype = i32
-        lib.tec_inter.argtypes = [vp, i32, vp, i32, vp, i32, i64, vp, vp]
+        lib.tec_inter.argtypes = [vp, i32, i32, vp, i32, i64, vp, i32, i32, i64, vp, vp]
         lib.tec_inter.restype = i32
         for sfx in ("", "_fp2"):  # K3's G1 entries and their G2 (Fq2) twins
             for name, args in (

@@ -39,27 +39,31 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     return torch.where(take.unsqueeze(-1), d, hi).to(a.dtype)
 
 
-def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a*b*R^-1 mod p for (..., L) ``a`` and ``b`` of the same shape or (L,).
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor | None = None) -> torch.Tensor:
+    """a*b*R^-1 mod p for (..., L) ``a`` and a ``b`` of a's shape, of its
+    trailing shape (the same rows for every leading index, as a twiddle
+    table's doubling multiplies each row block by one row of powers), or (L,).
 
     CPU tensors take the plain version.  CUDA tensors must be contiguous
-    int32; the kernel computes it on the current stream."""
+    int32; the kernel computes it on the current stream, into ``out`` (a
+    contiguous tensor of a's shape) where one is given."""
     if a.device.type == "cpu":
-        return mont_mul_plain(spec, a, b)
+        r = mont_mul_plain(spec, a, b)
+        return r if out is None else out.copy_(r)
     L = spec.n_limbs
     check_cuda(a, "a", torch.int32)
     if a.shape[-1] != L:
         raise ValueError(f"a: last axis must be {L} half-limbs, got {tuple(a.shape)}")
-    if b.dim() == 1:
-        check_cuda(b, "b", torch.int32, (L,))
-        b_stride = 0
+    if b.dim() > a.dim() or tuple(b.shape) != tuple(a.shape[a.dim() - b.dim():]):
+        raise ValueError(f"b: shape {tuple(b.shape)} is not a trailing shape of a's {tuple(a.shape)}")
+    check_cuda(b, "b", torch.int32)
+    if out is None:
+        out = torch.empty_like(a)
     else:
-        check_cuda(b, "b", torch.int32, a.shape)
-        b_stride = L
-    out = torch.empty_like(a)
+        check_cuda(out, "out", torch.int32, a.shape)
     lib = load()
     err = lib.tec_mont_mul(
-        L // 2, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // L, b_stride,
+        L // 2, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // L, b.numel() // L,
         field_consts(spec), stream(),
     )
     check(lib, err, "mont_mul")

@@ -126,7 +126,7 @@ def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
 
 # engines of tpu_ec's multiexp that the port has not ported yet, and where
 # ROADMAP.md queues them
-_NOT_PORTED = {"sorted": "item 15", "lattice": "item 11"}
+_NOT_PORTED = {"sorted": "item 9", "lattice": "item 5"}
 
 
 def _auto(spec: CurveSpec) -> str:

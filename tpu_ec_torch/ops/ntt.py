@@ -117,17 +117,25 @@ class FftKernel:
             raise Aborted("FFT aborted by hook")
 
     def _large(self, x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
-        """log_n >= DIGIT_MIN_LOG: the route config ``ntt_impl`` names."""
+        """log_n >= DIGIT_MIN_LOG: the route config ``ntt_impl`` names.
+
+        The digit route's tables stay cached per domain, that is per
+        (log_n, inverse) under the module's thresholds: from 2^22 to below
+        ``ntt_digit._CHUNK_MIN`` the level-0 Bailey table is materialised
+        on the card, 64 bytes an element (1 GiB a direction at 2^24, and
+        4 GiB at 2^26 where the thresholds leave 2^26 unchunked); chunked
+        sizes keep only the level's factored seeds.  The transform reads
+        and writes x's (n, L) rows, with no transposed copy of either."""
         cfg = get_config()
         key = (cfg.ntt_impl, log_n, inverse)
         if cfg.ntt_impl == "digit":
-            from .ntt_digit import digit_consts, digit_ntt_planes, get_digit_domain, leaf_log
+            from .ntt_digit import digit_consts, digit_ntt_rows, get_digit_domain, leaf_log
 
+            dom = get_digit_domain(self.spec, log_n, inverse, leaf_log(log_n))
+            key = ("digit", dom)
             if key not in self._consts:
-                dom = get_digit_domain(self.spec, log_n, inverse, leaf_log(log_n))
                 self._consts[key] = digit_consts(dom, self.device)
-            y = digit_ntt_planes(self.spec, x.T.contiguous(), inverse, consts=self._consts[key])
-            return y.T.contiguous()
+            return digit_ntt_rows(self.spec, x.contiguous(), inverse, consts=self._consts[key])
         if cfg.ntt_impl == "fused":
             from .ntt_fused import fused_consts, fused_ntt, get_fused_domain
 

@@ -9,16 +9,26 @@ digits it is an exact s8 x s8 -> s32 GEMM:
     G[t][e, d] = digit_e(w_m^t 2^(7d) mod p)
 
 Both operands are in [0, 127], so column sums stay below m * 37 * 127^2 <
-2^31 (m <= 2^7 at the default leaf).  Between four-step levels the Bailey
+2^31 (m <= 2^8 at the default leaf).  Between four-step levels the Bailey
 twiddle T[k2, j1] is applied by kernel K2 (``kernels/inter.py``), which
 carries the raw columns, multiplies by the 2^288-scaled twiddle with
 R' = 2^288 and splits back to int8 digits; the last pass is K2 with one
 constant twiddle and a canonical reduction.  Montgomery form passes through
 untouched: the map is linear.
 
+The Bailey table of a level comes by one of tpu_ec's three routes: host
+numpy below ``_DEVICE_TABLE_MIN`` elements, row doubling with kernel K1 on
+the tensor's device from there, and from ``_CHUNK_MIN`` factored seeds
+only, each chunk of the level synthesising its block of the table with
+K1.  A transform of ``_CHUNK_MIN`` elements or more runs every level in
+``_CHUNK_COUNT`` slices of the leaf-output axis k2 and its last GEMM in
+slices of the batch axis, so that no full raw-column tensor exists; the
+last slices' K2 pass (twiddle 2^288, a carry to digits that keeps the
+value mod p) hands the final pass int8 digits, K2's int8 entry.  A module
+constant patched at run time takes effect for the domains built after it.
+
 The leaf GEMM is ``torch._int_mm`` (int8 tensor cores) on CUDA and an int64
-matmul on the CPU (int8 ``torch.mm`` wraps there).  Levels of 2^25 elements
-or more (``tpu_ec``'s chunked levels) are not ported yet.
+matmul on the CPU (int8 ``torch.mm`` wraps there).
 """
 
 from __future__ import annotations
@@ -30,18 +40,36 @@ import numpy as np
 import torch
 
 from ..config import get_config
+from ..fields.limbs import storage_dtype
 from ..fields.params import LIMB_BITS, FieldSpec, int_to_limbs
 from ..kernels.inter import inter_twiddle
+from ..kernels.mont import mont_mul
 from .ntt import get_domain, twiddle_table_np
 
 DIGIT_BITS = 7
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
 WIDE_LIMBS = 18  # R' = 2^(16*18) = 2^288
 
-# levels of at least this many elements run chunked in tpu_ec (the full
-# Bailey table and raw-column tensor would not fit a 16 GiB chip); the port
-# has no chunked level yet
-_CHUNK_MIN = 1 << 25
+# a level's Bailey table of at least this many elements is built with K1 on
+# the tensor's device.  On the card's machine the host numpy table
+# (inter_table288_np, numpy Montgomery on one thread) took 2.18 s at 2^16,
+# 8.68 s at 2^18, 33.00 s at 2^20 and 144.37 s at 2^22, and K1 built each
+# table in 1.6-4.2 ms (H100 80GB HBM3, 700 W; utils/table_times.py).
+# tpu_ec's 2^22 weighed a TPU host's minutes; below 2^16 the tables stay
+# on the host and its disk cache, as tpu_ec's are
+_DEVICE_TABLE_MIN = 1 << 16
+# transforms of at least this many elements run chunked, and levels of at
+# least this many keep factored seeds instead of a table.  tpu_ec's 2^25
+# fitted a 16 GiB chip.  One unchunked level of 2^26 holds 10 GiB of raw
+# int32 columns (40 x 2^26) and 2.3 GiB each of GEMM operand and int8
+# digits out, beside a 4 GiB cached table a direction and the 4 GiB input
+# and output: on the card the unchunked 2^26 forward took 635.6 ms at
+# 13.25 GiB above what it holds, the chunked 791.3 ms at 11.08 GiB
+# (chip_smoke.py phase 4h; H100 80GB HBM3, 700 W), so 2^26 stays
+# unchunked beside the commit's 12.9 GB of 2^26 G1 bases.  At 2^27 a level
+# doubles to ~27 GiB and the tables to 16 GiB for both directions
+_CHUNK_MIN = 1 << 27
+_CHUNK_COUNT = 16
 
 
 def _digit_count(bits: int) -> int:
@@ -152,48 +180,134 @@ def cached_table(spec: FieldSpec, kind: str, key_parts, build):
     return arr
 
 
+def _limbs(a, device) -> torch.Tensor:
+    """A numpy limb array as a tensor of the storage dtype on ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device).to(storage_dtype(device))
+
+
+def _c288(spec: FieldSpec) -> np.ndarray:
+    """2^288 mod p as limbs: the seed row of a 2^288-scaled table."""
+    return int_to_limbs((1 << (LIMB_BITS * WIDE_LIMBS)) % spec.modulus, spec.n_limbs)
+
+
+def _powers_row(spec: FieldSpec, omega: int, log_n: int, log_m: int, log_n1: int, device) -> torch.Tensor:
+    """(n1, L) R-form row w_m^j1 of one level (w_m = omega^(n/m)), built on
+    ``device`` with K1 by the doubling ``twiddle_table_np`` runs on the host
+    (tpu_ec's ``curpow0``), so the values are the same: row r .. 2r - 1 is
+    rows 0 .. r - 1 times w_m^r; log2(n1) launches."""
+    L, p = spec.n_limbs, spec.modulus
+    w_pow = pow(omega, 1 << (log_n - log_m), p)
+    row = torch.empty((1 << log_n1, L), dtype=storage_dtype(device), device=device)
+    row[0] = _limbs(int_to_limbs(spec.one, L), device)
+    r = 1
+    while r < row.shape[0]:
+        mont_mul(spec, row[:r], _limbs(int_to_limbs(spec.to_mont(w_pow), L), device), out=row[r : 2 * r])
+        w_pow = w_pow * w_pow % p
+        r *= 2
+    return row
+
+
+def inter_table288_device(
+    spec: FieldSpec, omega: int, log_n: int, log_m: int, log_n1: int, device
+) -> torch.Tensor:
+    """(n2, n1, L) rows of the 2^288-scaled table T'[k2, j1] = w_m^(k2 j1)
+    * 2^288 mod p (the transpose of ``inter_table288_np``'s planes), built
+    on ``device`` by row doubling with kernel K1 (its plain version on the
+    CPU), as tpu_ec's ``inter_table288_device``.
+
+    The rows stay in 2^288-scaled plain form (seed row C = 2^288 mod p)
+    while the multiplier cur[j1] = w_m^(j1 2^t) stays in R-form, so
+    mont(t * 2^288, cur * R) = t * cur * 2^288: each round writes rows
+    r .. 2r - 1 as rows 0 .. r - 1 times cur, then squares cur; log2(n2)
+    launches write the table and log2(n2) - 1 square, after the log2(n1) of
+    the first cur."""
+    L = spec.n_limbs
+    n1, n2 = 1 << log_n1, 1 << (log_m - log_n1)
+    cur = _powers_row(spec, omega, log_n, log_m, log_n1, device)
+    table = torch.empty((n2, n1, L), dtype=storage_dtype(device), device=device)
+    table[0] = _limbs(_c288(spec), device)
+    r = 1
+    while r < n2:
+        mont_mul(spec, table[:r], cur, out=table[r : 2 * r])
+        r *= 2
+        if r < n2:
+            cur = mont_mul(spec, cur, cur)
+    return table
+
+
+def _factored_seeds(dom: "DigitDomain", log_m: int, log_n1: int, device) -> dict:
+    """Seeds of one level's chunked twiddle synthesis (tpu_ec's
+    ``_factored_seeds``): ``cur_pows[t]`` the (n1, L) R-form row
+    w_m^(2^t j1), t < log2(n2), and ``c_row`` the (n1, L) seed row of
+    C = 2^288 mod p.  log2(n1) K1 launches build the first row and
+    log2(n2) - 1 square it."""
+    spec = dom.spec
+    pows = [_powers_row(spec, dom.omega, dom.log_n, log_m, log_n1, device)]
+    for _ in range(log_m - log_n1 - 1):
+        pows.append(mont_mul(spec, pows[-1], pows[-1]))
+    c_row = _limbs(_c288(spec), device).expand(1 << log_n1, spec.n_limbs).contiguous()
+    return {"cur_pows": pows, "c_row": c_row}
+
+
 # ---------------------------------------------------------------------------
 # digit plumbing
 # ---------------------------------------------------------------------------
 
 
 def split_digits_rows(v16: torch.Tensor, d_out: int) -> torch.Tensor:
-    """(L16, ...) 16-bit limb planes -> (d_out, ...) int8 base-2^7 digits."""
+    """(L16, ...) 16-bit limb planes -> (d_out, ...) int8 base-2^7 digits,
+    cast one digit plane at a time (no int32 stack of all of them)."""
     L16 = v16.shape[0]
-    outs = []
+    out = torch.empty((d_out,) + tuple(v16.shape[1:]), dtype=torch.int8, device=v16.device)
     for e in range(d_out):
         i0, off = divmod(e * DIGIT_BITS, LIMB_BITS)
         if i0 >= L16:
-            outs.append(torch.zeros_like(v16[0]))
+            out[e] = 0
             continue
         d = v16[i0] >> off
         if off > LIMB_BITS - DIGIT_BITS and i0 + 1 < L16:
             d = d | (v16[i0 + 1] << (LIMB_BITS - off))
-        outs.append(d & DIGIT_MASK)
-    return torch.stack(outs, dim=0).to(torch.int8)
+        out[e] = d & DIGIT_MASK
+    return out
 
 
-def _leaf_gemm(A2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Leaf NTTs over axis 1 of x (d_in, m, M) int8 digits, batched over M:
-    A2 is the (d_out * m, m * d_in) leaf matrix.  Returns (d_out, m, M) raw
-    columns, int32 on CUDA (``torch._int_mm``) and int64 on the CPU."""
+def _split_rows(x: torch.Tensor, d_out: int, block: int = 1 << 22) -> torch.Tensor:
+    """(n, L16) limb rows -> (d_out, n) int8 digits, through a transposed
+    copy of one block of rows at a time (not of all n)."""
+    n = x.shape[0]
+    out = torch.empty((d_out, n), dtype=torch.int8, device=x.device)
+    for s in range(0, n, block):
+        out[:, s : s + block] = split_digits_rows(x[s : s + block].T.contiguous(), d_out)
+    return out
+
+
+def _leaf_rhs(x: torch.Tensor) -> torch.Tensor:
+    """The leaf GEMM's right operand of x (d_in, m, M) int8 digits: the
+    (m * d_in, M) matrix, int64 on the CPU; on CUDA int8 with K and N
+    padded to multiples of 8, as ``torch._int_mm`` wants."""
     d_in, m, M = x.shape
-    rows, K = A2.shape
     xk = x.permute(1, 0, 2).reshape(m * d_in, M)
     if x.device.type == "cpu":
-        out = A2.to(torch.int64) @ xk.to(torch.int64)
-    else:
-        # _int_mm wants more than 16 rows and K, N multiples of 8
-        pad_k, pad_n = -K % 8, -M % 8
-        if pad_k:
-            A2 = torch.nn.functional.pad(A2, (0, pad_k))
-            xk = torch.nn.functional.pad(xk, (0, 0, 0, pad_k))
-        if pad_n:
-            xk = torch.nn.functional.pad(xk, (0, pad_n))
-        if rows <= 16:
-            A2 = torch.nn.functional.pad(A2, (0, 0, 0, 17 - rows))
-        out = torch._int_mm(A2.contiguous(), xk.contiguous())[:rows, :M]
-    return out.reshape(rows // m, m, M).contiguous()
+        return xk.to(torch.int64)
+    pad_k, pad_n = -(m * d_in) % 8, -M % 8
+    if pad_k or pad_n:
+        xk = torch.nn.functional.pad(xk, (0, pad_n, 0, pad_k))
+    return xk.contiguous()
+
+
+def _leaf_mm(A2: torch.Tensor, xk: torch.Tensor, M: int) -> torch.Tensor:
+    """Rows of the leaf matrix A2 (rows, m * d_in) times ``_leaf_rhs``'s
+    operand: (rows, M) raw columns, int32 on CUDA and int64 on the CPU."""
+    rows, K = A2.shape
+    if xk.device.type == "cpu":
+        return A2.to(torch.int64) @ xk
+    # _int_mm wants more than 16 rows and K, N multiples of 8
+    if xk.shape[0] != K:
+        A2 = torch.nn.functional.pad(A2, (0, xk.shape[0] - K))
+    if rows <= 16:
+        A2 = torch.nn.functional.pad(A2, (0, 0, 0, 17 - rows))
+    out = torch._int_mm(A2.contiguous(), xk)
+    return out if out.shape == (rows, M) else out[:rows, :M].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -202,17 +316,18 @@ def _leaf_gemm(A2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class DigitDomain:
-    """Constant tables of one (field, log_n, inverse, leaf) digit-matmul NTT."""
+    """Constant tables of one (field, log_n, inverse, leaf) digit-matmul NTT,
+    and the routes of its levels: ``inter[(log_m, log_n1)]`` is the host
+    table (a numpy (L16, n2, n1) array), "device" (K1 builds it in
+    ``digit_consts``) or "factored" (seeds only; the level runs chunked).
+    The thresholds are the module constants when the domain is built."""
 
     def __init__(self, spec: FieldSpec, log_n: int, inverse: bool, leaf: int):
-        if (1 << log_n) >= _CHUNK_MIN:
-            raise NotImplementedError(
-                f"digit NTT of 2^{log_n}: levels of 2^25 or more run chunked, not ported yet"
-            )
         self.spec = spec
         self.log_n = log_n
         self.inverse = inverse
         self.leaf = leaf
+        self.chunk_min, self.device_table_min, self.chunk_count = _CHUNK_MIN, _DEVICE_TABLE_MIN, _CHUNK_COUNT
         self.omega = get_domain(spec, log_n, inverse).omega
         p = spec.modulus
         self.d_in = _digit_count(LIMB_BITS * spec.n_limbs)  # inputs < 2^256
@@ -223,7 +338,7 @@ class DigitDomain:
         assert self.d_leaf * DIGIT_BITS <= LIMB_BITS * WIDE_LIMBS
         assert mmax * self.d_in * DIGIT_MASK * DIGIT_MASK < (1 << 31)
         self.matrices: dict[int, np.ndarray] = {}
-        self.inter: dict[tuple[int, int], np.ndarray] = {}
+        self.inter: dict[tuple[int, int], np.ndarray | str] = {}
         self._build()
 
     @staticmethod
@@ -247,12 +362,15 @@ class DigitDomain:
         log_rest = self.log_n
         for lf in self.plan[:-1]:
             n1_log = log_rest - lf
-            self.inter[(log_rest, n1_log)] = cached_table(
-                self.spec, "inter288", (self.log_n, int(self.inverse), log_rest, n1_log),
-                lambda lr=log_rest, nl=n1_log: inter_table288_np(
-                    spec, self.omega, self.log_n, lr, nl
-                ),
-            )
+            if (1 << log_rest) >= self.chunk_min:
+                self.inter[(log_rest, n1_log)] = "factored"
+            elif (1 << log_rest) >= self.device_table_min:
+                self.inter[(log_rest, n1_log)] = "device"
+            else:
+                self.inter[(log_rest, n1_log)] = cached_table(
+                    self.spec, "inter288", (self.log_n, int(self.inverse), log_rest, n1_log),
+                    lambda lr=log_rest, nl=n1_log: inter_table288_np(spec, self.omega, self.log_n, lr, nl),
+                )
             self._leaf(lf)
             log_rest = n1_log
         self._leaf(self.plan[-1])
@@ -263,53 +381,151 @@ class DigitDomain:
         self.final_c = int_to_limbs(c, spec.n_limbs)
 
 
-@functools.lru_cache(maxsize=16)
 def get_digit_domain(spec: FieldSpec, log_n: int, inverse: bool, leaf: int) -> DigitDomain:
-    return DigitDomain(spec, log_n, inverse, leaf)
+    """The cached domain under the module's current thresholds."""
+    return _digit_domain(spec, log_n, inverse, leaf, _CHUNK_MIN, _DEVICE_TABLE_MIN, _CHUNK_COUNT)
+
+
+@functools.lru_cache(maxsize=16)
+def _digit_domain(spec, log_n, inverse, leaf, *thresholds) -> DigitDomain:
+    return DigitDomain(spec, log_n, inverse, leaf)  # the thresholds only key the cache
 
 
 def digit_consts(dom: DigitDomain, device) -> dict:
     """The domain's tables as tensors on ``device``: leaf matrices reshaped
-    for the GEMM, Bailey tables and the final constant in storage dtype."""
-    from ..fields.limbs import storage_dtype
-
-    dt = storage_dtype(device)
-
-    def limbs(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device).to(dt)
-
+    for the GEMM, each level's Bailey table as (n2, n1, L) rows (uploaded,
+    or built with K1) or its factored seeds, and the constants of the last
+    passes in storage dtype.  A materialised table of 2^26 elements takes
+    4 GiB."""
     A = {}
     for lf, mat in dom.matrices.items():
         d_out, m, _, d_in = mat.shape
         A[lf] = torch.as_tensor(mat.reshape(d_out * m, m * d_in), device=device)
-    return {
-        "A": A,
-        "inter": {k: limbs(v) for k, v in dom.inter.items()},
-        "final_c": limbs(dom.final_c),
-    }
+    inter = {}
+    for (log_m, log_n1), v in dom.inter.items():
+        if isinstance(v, np.ndarray):
+            inter[(log_m, log_n1)] = _limbs(np.transpose(v, (1, 2, 0)), device)
+        elif v == "factored":
+            inter[(log_m, log_n1)] = _factored_seeds(dom, log_m, log_n1, device)
+        else:
+            inter[(log_m, log_n1)] = inter_table288_device(
+                dom.spec, dom.omega, dom.log_n, log_m, log_n1, device)
+    return {"A": A, "inter": inter, "final_c": _limbs(dom.final_c, device),
+            "c288": _limbs(_c288(dom.spec), device)}
 
 
-def _rec(dom: DigitDomain, x: torch.Tensor, log_m: int, consts: dict, level: int = 0):
-    """x: (d_in, m, M) int8 digit planes (values < 2^256, R-domain) ->
-    (d_out, m, M) raw column planes of the size-m NTT, natural order along
-    axis 1.  Columns stay raw so the next K2 pass fuses their carry."""
+def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int) -> torch.Tensor:
+    """One four-step level in nc slices of the leaf-output axis k2, so the
+    full raw-column tensor never exists (tpu_ec's ``_chunked_level``).
+    ``xk`` is the level's GEMM operand, made once; slice a's rows of A2
+    (row e * n2 + k2, strided) are gathered once into a small block.  The
+    slice's (c, n1) twiddle block is sliced from a materialised table, or
+    with factored seeds (a dict) synthesised with K1 as mont(base,
+    w^(a j1)): base rows 0 .. c - 1 by doubling from the seed row (log2(c)
+    launches a level), the row of powers as a product of the seeds of a's
+    bits (popcount(a / c) launches a slice, none for slice 0).  Returns
+    (d_in, n2 * n1 * M) int8 digits."""
+    spec = dom.spec
+    L = spec.n_limbs
+    nc = min(dom.chunk_count, n2)
+    c = n2 // nc
+    logc = c.bit_length() - 1
+    N = n1 * M
+    d_out = A2.shape[0] // n2
+    A3 = A2.view(d_out, n2, A2.shape[1])
+    y = torch.empty((dom.d_in, n2, N), dtype=torch.int8, device=xk.device)
+    factored = isinstance(T, dict)
+    if factored:
+        pows = T["cur_pows"]
+        base = torch.empty((c, n1, L), dtype=T["c_row"].dtype, device=xk.device)
+        base[0] = T["c_row"]
+        r = 1
+        while r < c:
+            mont_mul(spec, base[:r], pows[r.bit_length() - 1], out=base[r : 2 * r])
+            r *= 2
+    for ci in range(nc):
+        a = ci * c
+        cols = _leaf_mm(A3[:, a : a + c].reshape(d_out * c, A2.shape[1]), xk, N)
+        if factored:
+            row, t, bits = None, logc, ci
+            while bits:
+                if bits & 1:
+                    row = pows[t] if row is None else mont_mul(spec, row, pows[t])
+                bits >>= 1
+                t += 1
+            tchunk = base if row is None else mont_mul(spec, base, row)
+        else:
+            tchunk = T[a : a + c]
+        y_c = inter_twiddle(spec, cols.view(d_out, c * N), tchunk.reshape(c * n1, L), t_rep=M)
+        del cols
+        y[:, a : a + c] = y_c.view(dom.d_in, c, N)
+    return y.view(dom.d_in, n2 * N)
+
+
+def _transform(dom: DigitDomain, consts: dict, x: torch.Tensor, out_rows: bool = False) -> torch.Tensor:
+    """x: (d_in, n, M) int8 digit planes (values < 2^256, R-form) of M
+    interleaved transforms, owned by this call: each level frees its input
+    before the next.  Returns the canonical (16, n * M) planes, or with
+    ``out_rows`` (n * M, 16) rows.
+
+    Each level of the plan runs the leaf NTT over j2 as one GEMM batched
+    over (j1, M), K2 with the Bailey twiddle (column i's twiddle at i // M)
+    and a transpose; the size-m recursion of tpu_ec's ``_rec`` is this loop,
+    since a level's output needs only a reshape.  The last GEMM's raw
+    columns go to the final K2; a chunked transform runs that GEMM in
+    slices of M, each followed by K2 with T = 2^288, and the final K2 reads
+    their int8 digits."""
+    spec = dom.spec
     A, inter = consts["A"], consts["inter"]
-    if level == len(dom.plan) - 1:
-        return _leaf_gemm(A[log_m], x)
-    d_in, _, M = x.shape
-    log_n2 = dom.plan[level]
-    log_n1 = log_m - log_n2
-    n1, n2 = 1 << log_n1, 1 << log_n2
-    # leaf NTT over j2 (axis 1), batched over (j1, M)
-    cols = _leaf_gemm(A[log_n2], x.reshape(d_in, n2, n1 * M))  # (d_out, n2, n1*M)
-    T = inter[(log_m, log_n1)]  # (L16, n2, n1)
-    tfull = T[:, :, :, None].expand(T.shape[0], n2, n1, M).reshape(T.shape[0], n2 * n1 * M)
-    y = inter_twiddle(dom.spec, cols.reshape(cols.shape[0], n2 * n1 * M), tfull.contiguous())
-    # transpose and recurse over n1
-    yt = y.reshape(dom.d_in, n2, n1, M).transpose(1, 2).reshape(dom.d_in, n1, n2 * M)
-    z = _rec(dom, yt, log_n1, consts, level + 1)
-    # k1-major flatten == natural order (X[k2 + n2*k1] = Z[k1, k2])
-    return z.reshape(z.shape[0], n1 * n2, M)
+    d_in, n, M = x.shape
+    total = n * M
+    chunked = total >= dom.chunk_min
+    log_m = dom.log_n
+    for log_n2 in dom.plan[:-1]:
+        log_n1 = log_m - log_n2
+        n1, n2 = 1 << log_n1, 1 << log_n2
+        xk = _leaf_rhs(x.view(d_in, n2, n1 * M))
+        del x
+        T = inter[(log_m, log_n1)]
+        if chunked or isinstance(T, dict):
+            y = _chunked_level(dom, A[log_n2], xk, T, n1, n2, M)
+        else:
+            cols = _leaf_mm(A[log_n2], xk, n1 * M)  # (d_out * n2, n1 * M)
+            del xk
+            y = inter_twiddle(spec, cols.view(-1, total), T.view(n2 * n1, -1), t_rep=M)
+            del cols
+        # transpose and go on with the size-n1 transforms, batched over (k2, M)
+        x = y.view(d_in, n2, n1, M).transpose(1, 2).contiguous().view(d_in, n1, n2 * M)
+        del y
+        log_m, M = log_n1, n2 * M
+    m = 1 << log_m
+    if chunked:
+        nc = min(dom.chunk_count, M)
+        mc = M // nc
+        out = torch.empty((d_in, m, M), dtype=torch.int8, device=x.device)
+        for ci in range(nc):
+            s = slice(ci * mc, (ci + 1) * mc)
+            cols = _leaf_mm(A[log_m], _leaf_rhs(x[:, :, s]), mc)
+            dig = inter_twiddle(spec, cols.view(-1, m * mc), consts["c288"], const_t=True)
+            del cols
+            out[:, :, s] = dig.view(d_in, m, mc)
+    else:
+        xk = _leaf_rhs(x)
+        del x
+        out = _leaf_mm(A[log_m], xk, M)  # (d_out * m, M)
+        del xk
+    return inter_twiddle(spec, out.view(-1, total), consts["final_c"], canonical=True, const_t=True,
+                         out_rows=out_rows)
+
+
+def _prepare(spec: FieldSpec, n: int, inverse: bool, leaf: int | None, consts: dict | None, device):
+    """(domain, its tables on ``device``) of a transform of n."""
+    log_n = int(n).bit_length() - 1
+    if 1 << log_n != n:
+        raise ValueError("FFT size must be a power of two")
+    leaf = leaf_log(log_n) if leaf is None else min(leaf, log_n)
+    dom = get_digit_domain(spec, log_n, inverse, leaf)
+    return dom, digit_consts(dom, device) if consts is None else consts
 
 
 def digit_ntt_planes(
@@ -323,15 +539,42 @@ def digit_ntt_planes(
     """Natural-order NTT bit-exact with ops.ntt.FftKernel.  Returns (L16, n)
     canonical Montgomery planes (< p) in the storage dtype."""
     L16, n = xp.shape
-    log_n = int(n).bit_length() - 1
-    if 1 << log_n != n:
-        raise ValueError("FFT size must be a power of two")
-    leaf = leaf_log(log_n) if leaf is None else min(leaf, log_n)
-    dom = get_digit_domain(spec, log_n, inverse, leaf)
-    if consts is None:
-        consts = digit_consts(dom, xp.device)
-    dig = split_digits_rows(xp, dom.d_in)[:, :, None]  # (d_in, n, 1)
-    out = _rec(dom, dig, log_n, consts)
-    return inter_twiddle(
-        spec, out.reshape(out.shape[0], n), consts["final_c"], canonical=True, const_t=True
-    )
+    dom, consts = _prepare(spec, n, inverse, leaf, consts, xp.device)
+    return _transform(dom, consts, split_digits_rows(xp, dom.d_in).view(dom.d_in, n, 1))
+
+
+def digit_ntt_rows(
+    spec: FieldSpec,
+    x: torch.Tensor,  # (n, L16) half-limb rows, Montgomery form
+    inverse: bool = False,
+    *,
+    leaf: int | None = None,
+    consts: dict | None = None,
+) -> torch.Tensor:
+    """``digit_ntt_planes`` on (n, L16) rows, FftKernel's layout: the digits
+    are split from a block of rows at a time and K2 writes the (n, L16)
+    canonical rows, so no transposed copy of the whole input or output is
+    made."""
+    n = x.shape[0]
+    dom, consts = _prepare(spec, n, inverse, leaf, consts, x.device)
+    return _transform(dom, consts, _split_rows(x, dom.d_in).view(dom.d_in, n, 1), out_rows=True)
+
+
+def digit_ntt_planes_batch(
+    spec: FieldSpec,
+    xpb: torch.Tensor,  # (L16, n, B) half-limb planes, Montgomery form
+    inverse: bool = False,
+    *,
+    leaf: int | None = None,
+    consts: dict | None = None,
+) -> torch.Tensor:
+    """B independent length-n NTTs sharing the single transform's tables:
+    the same dataflow with the batch axis M = B threaded through every leaf
+    GEMM and K2 pass (tpu_ec's ``digit_ntt_planes_batch``, the local stage of
+    a four-step distributed NTT).  Returns (L16, n, B) canonical Montgomery
+    planes (< p); ``inverse`` folds n^-1 into the final constant of each
+    transform, as ``digit_ntt_planes`` does."""
+    L16, n, B = xpb.shape
+    dom, consts = _prepare(spec, n, inverse, leaf, consts, xpb.device)
+    y = _transform(dom, consts, split_digits_rows(xpb, dom.d_in))
+    return y.view(L16, n, B)
