@@ -117,8 +117,21 @@ Phases, each failing the run on any error:
    route the thresholds did not pick, equal bit for bit, with its ms and
    peak; BN254 Fr at 2^22 with the chunked route forced, against native;
    ``digit_ntt_planes_batch`` at (2^13, 2^11), 16 sampled columns against
-   native and the inverse batch against the input; K2's int8 entry against
-   its plain version at the 2^26 final pass's shape, with its bound;
+   native and the inverse batch against the input; K2's int8 entry (its
+   own kernel: a tile of columns a block, staged through shared memory)
+   against its plain version at the final pass's shape, (37, 2^20) and
+   (37, 2^26) digits into canonical rows, with its bound, ms / bound, the
+   plain version's time and its registers and spills, and at a ragged n
+   into planes and rows; K2's int32 level-0 row again;
+4i. the bucket lattice (``ops/msm.py msm_lattice``) on BLS12-381: the
+   unsigned ``multiexp(signed=False)`` ("auto" = the lattice) and the signed
+   ``method="lattice"`` on G1 at 2^16 (phase 4's first points), with
+   ``multiexp_1bit`` on the same, and an unsigned G2 MSM at 2^12, each
+   against the native Pippenger, with ms (mean of 3), the window, groups
+   and steps, K3 launches against ``lattice_steps`` and peak memory; the
+   window the card's table (``ops/tuned_windows.json``) gives the commit,
+   beside phase 4's commit ms (phases 4, 4c, 4e and 4g take their windows
+   as the engines do: the table, else the model);
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -274,7 +287,7 @@ def affine_to_u64(nc, xy):
 # kernel name in the mangled symbol -> label; a tuple is indexed by the op
 # (the second template argument)
 KERNEL_LABELS = (
-    ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"),
+    ("mont_mul_kernel", "K1 mont_mul"), ("inter_kernel", "K2 inter"), ("inter_i8_kernel", "K2 inter int8"),
     ("point_kernel", ("K3 add", "K3 add_mixed", "K3 double")), ("horner_kernel", "K3 horner"),
     ("point2_kernel", ("K3 add", "K3 add_mixed", "K3 double")),
     ("double_to", "K3 double_to (device function of the adds)"),
@@ -618,6 +631,7 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     from tpu_ec_torch.native import native_curve, native_field
     from tpu_ec_torch.ops.ec_fft import EcFftKernel
     from tpu_ec_torch.ops.msm import SCALAR_BITS, MultiexpKernel, make_digits
+    from tpu_ec_torch.ops.autotune import tuned_window
     from tpu_ec_torch.ops.msm_scan import (_fused_add, _unfuse, bucket_tail, default_window_size_scan, scan_buckets,
                                            scan_round, sorted_rows)
     from tpu_ec_torch.ops.pipeline import CommitPipeline
@@ -663,7 +677,7 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     chunk = msm.chunk_size
     chunks = -(-n // chunk)
     m = min(n, chunk)
-    w = default_window_size_scan(m)
+    w = tuned_window(BLS12_381_G2.name, "scan", m) or default_window_size_scan(m)  # as multiexp picks it
     got = on_path(kernels, report, ("point_fp2", "point_horner_fp2"), f"G2 MSM 2^{log_n}",
                   lambda: msm.multiexp(bases, scal))
     counts = kernels.launch_counters()
@@ -967,6 +981,7 @@ def phase_ntt_large(dev, report, check, card: str) -> None:
 
     from tpu_ec_torch import kernels
     from tpu_ec_torch.fields.params import BLS12_381_FR, BN254_FR
+    from tpu_ec_torch.kernels import build
     from tpu_ec_torch.kernels.inter import inter_twiddle, inter_twiddle_plain
     from tpu_ec_torch.native import native_field
     from tpu_ec_torch.ops import ntt_digit as nd
@@ -1113,25 +1128,119 @@ def phase_ntt_large(dev, report, check, card: str) -> None:
     del xb, yb
     torch.cuda.empty_cache()
 
-    # K2's int8 entry at the 2^26 final pass's shape: (37, 2^26) digits in,
-    # canonical (2^26, 16) rows out; its bound is bytes, 37 in and 64 out a column
-    n = 1 << 26
-    dig = torch.randint(0, 128, (37, n), generator=gen, device=dev, dtype=torch.int8)
+    # K2's int8 entry (its own kernel, a tile of columns a block) at the
+    # final pass's shape, (37, n) digits in, canonical (n, 16) rows out, at
+    # n = 2^26 and 2^20; its bound is bytes, 37 in and 64 out a column
     c = torch.as_tensor(dom26.final_c.astype(np.int64)).to(dev, torch.int32)
     kw = dict(canonical=True, const_t=True)
-    want, p_ms = cuda_ms_once(lambda: chunked(lambda d: inter_twiddle_plain(BLS12_381_FR, d, c, **kw), dig,
-                                              axis=1, rows=1 << 19))
-    check("inter_twiddle_i8", "K2 inter int8 entry (37, 2^26) int8 x const T -> canonical rows (2^26, 16), the "
-          "2^26 final pass", inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw), want.T,
-          cuda_ms(lambda: inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw)), p_ms,
-          nbytes=n * (37 + 16 * 4), imads=n * 2 * 153)
-    r = report.rows["inter_twiddle_i8"]
-    print(f"K2 int8 entry 2^26: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), ms / bound "
-          f"{r['ms'] / r['bound_ms']:.2f} | {card}", flush=True)
+    i8 = {}
+    for log_n in (20, 26):
+        n = 1 << log_n
+        dig = torch.randint(0, 128, (37, n), generator=gen, device=dev, dtype=torch.int8)
+        want, p_ms = cuda_ms_once(lambda: chunked(lambda d: inter_twiddle_plain(BLS12_381_FR, d, c, **kw), dig,
+                                                  axis=1, rows=1 << 19))
+        got = inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw)
+        k_ms = cuda_ms(lambda: inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw))
+        bound = n * (37 + 16 * 4) / HBM_BYTES_PER_S * 1e3
+        check("inter_twiddle_i8", f"K2 inter int8 entry (37, 2^{log_n}) int8 x const T -> canonical rows "
+              f"(2^{log_n}, 16), the final pass", got, want.T, k_ms, p_ms,
+              **(dict(nbytes=n * (37 + 16 * 4), imads=n * 2 * 153) if log_n == 26 else {}))
+        i8[log_n] = (k_ms, bound, p_ms)
+        del dig, want, got
+        torch.cuda.empty_cache()
+    # a ragged n (odd, not a multiple of the tile): both canonical layouts
+    n = 3 * (1 << 16) + 77
+    dig = torch.randint(0, 128, (37, n), generator=gen, device=dev, dtype=torch.int8)
+    want = inter_twiddle_plain(BLS12_381_FR, dig, c, **kw)
+    check("inter_twiddle_i8", f"K2 inter int8 entry (37, {n}) -> planes", inter_twiddle(BLS12_381_FR, dig, c, **kw),
+          want, 0.0, 0.0)
+    check("inter_twiddle_i8", f"K2 inter int8 entry (37, {n}) -> rows",
+          inter_twiddle(BLS12_381_FR, dig, c, out_rows=True, **kw), want.T, 0.0, 0.0)
     del dig, want
+    regs = "; ".join(ln for ln in ptxas_summary(build.ptxas_report()) if ln.startswith("K2"))
+    i32 = report.rows["inter_twiddle"]
+    print("K2 int8 entry: " + ", ".join(f"(37, 2^{lg}) {k:.4f} ms, bound {b:.4f} ms (bytes), ms / bound "
+                                        f"{k / b:.2f}, plain {p:.3f} ms" for lg, (k, b, p) in i8.items())
+          + f"; == plain at (37, {n}) planes and rows; K2 int32 level 0 (phase 3) {i32['ms']:.4f} ms, bound "
+          f"{i32['bound_ms']:.4f} ms, ms / bound {i32['ms'] / i32['bound_ms']:.2f}; ptxas {regs} | {card}",
+          flush=True)
     referee.shutdown()
     torch.cuda.empty_cache()
     print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int) -> None:
+    """Phase 4i: the bucket lattice on BLS12-381 at full width, each output
+    against the native Pippenger: ``multiexp(signed=False)`` ("auto" = the
+    lattice) and ``method="lattice"`` signed on G1 at 2^16 (phase 4's first
+    points), ``multiexp_1bit`` on the same, an unsigned G2 lattice at 2^12;
+    ms, K3 launches against ``lattice_steps``, peak memory; then the window
+    the table gives the commit."""
+    import numpy as np
+    import torch
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.curves.params import BLS12_381_G1, BLS12_381_G2
+    from tpu_ec_torch.fields.params import BLS12_381_FR
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.autotune import tuned_window
+    from tpu_ec_torch.ops.msm import (MultiexpKernel, default_num_groups, default_window_size, lattice_steps,
+                                      multiexp_1bit)
+    from tpu_ec_torch.ops.msm_pair import default_window_size_pair
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)  # its own seed: the other phases' inputs stay the parent's
+    g1 = MultiexpKernel(BLS12_381_G1, dev)
+    m1 = 1 << min(16, log_n)
+    ncg2 = native_curve(BLS12_381_G2)
+    m2 = 1 << min(12, log_n)
+    g2 = MultiexpKernel(BLS12_381_G2, dev)
+    aff2 = random_points(ncg2, rng, m2)[1]
+    cases = (
+        ("G1 multiexp(signed=False) ('auto' = lattice)", g1, nc, bases_aff[:m1], None, False,
+         lambda b, s: g1.multiexp(b, s, signed=False)),
+        ("G1 multiexp(method='lattice') signed", g1, nc, bases_aff[:m1], None, True,
+         lambda b, s: g1.multiexp(b, s, method="lattice")),
+        ("G1 multiexp_1bit", g1, nc, bases_aff[:m1], 1, False,
+         lambda b, s: multiexp_1bit(BLS12_381_G1, b, s, device=dev)),
+        ("G2 multiexp(signed=False) ('auto' = lattice)", g2, ncg2, aff2, None, False,
+         lambda b, s: g2.multiexp(b, s, signed=False)),
+    )
+    for label, kern, ncv, aff, w, signed, run in cases:
+        n = aff.shape[0]
+        ext = kern.spec.ext
+        s_np = random_field(rng, BLS12_381_FR, n)  # plain Fr integers, rows 0-2: 0, 1, r - 1
+        bases = kern.upload_bases(coords_from_u64(ncv, aff, 2, dev))
+        scal = torch.as_tensor(s_np).to(dev, torch.int32)
+        w = w or default_window_size(n)
+        G = default_num_groups(n, w)
+        steps = lattice_steps(-(-n // G), G, w, signed)
+        owned = ("point", "point_horner") if ext == 1 else ("point_fp2", "point_horner_fp2")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = on_path(kernels, None, owned, f"{label} 2^{n.bit_length() - 1}", lambda: run(bases, scal))
+        counts = kernels.launch_counters()
+        peak = torch.cuda.max_memory_allocated() - base
+        want_k3 = sum(steps.values())
+        other = "point" if ext == 2 else "point_fp2"
+        if counts[owned[0]] != want_k3 or counts[owned[1]] != 1 or counts[other]:
+            raise SystemExit(f"{label}: K3 launches {counts}; the lattice predicts {want_k3} ({steps}), one Horner")
+        want = ncv.to_affine(ncv.msm(aff, ncv.fr.from_halflimbs(s_np.astype(np.uint64)))[None, :])
+        if not np.array_equal(native_affine(ncv, got), want):
+            raise SystemExit(f"{label}: the result disagrees with the native Pippenger")
+        ms, runs = host_ms(lambda: run(bases, scal))
+        print(f"{label} 2^{n.bit_length() - 1}: == native Pippenger; {ms:.2f} ms mean of 3 "
+              f"({', '.join(f'{t:.2f}' for t in runs)}); w = {w}, G = {G}, {steps['add_mixed']} steps; K3 launches "
+              f"{counts[owned[0]]} == the plan's {want_k3} ({steps}); peak {peak / 2**30:.3f} GiB above the inputs "
+              f"| {card}", flush=True)
+        del bases, scal, got
+        torch.cuda.empty_cache()
+    n = 1 << log_n
+    w_tab, w_model = tuned_window(BLS12_381_G1.name, "pair", n), default_window_size_pair(n)
+    print(f"commit 2^{log_n}: the pair engine's window from the table {w_tab} (the model's {w_model}); the commit "
+          f"{commit_ms:.1f} ms mean of 3 (phase 4) | {card}", flush=True)
+    print(f"phase 4i: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1169,6 +1278,7 @@ def main() -> int:
     from tpu_ec_torch.ops.affine import affine_add_batch, batch_inverse, partial_products
     from tpu_ec_torch.ops.density import DensityTracker, compact_by_density
     from tpu_ec_torch.ops.ec_fft import EcFftKernel
+    from tpu_ec_torch.ops.autotune import tuned_window
     from tpu_ec_torch.ops.msm import SCALAR_BITS, batch_slab
     from tpu_ec_torch.ops.msm_coz import _bucket_rows, _pair_up, default_window_size_coz
     from tpu_ec_torch.ops.msm_pair import (_bucket_rows, _pair_round, _unfuse, default_window_size_pair,
@@ -1330,7 +1440,7 @@ def main() -> int:
         check("point", f"K3 {op}{' (P affine)' if len(ins) == 4 else ''} keep + out= n={npts}",
               kern(), plain(), cuda_ms(kern), cuda_ms(plain, iters=1))
     # the Horner combine at the commit's shape: 19 window sums, w = 14
-    wp = default_window_size_pair(n)
+    wp = tuned_window(BLS12_381_G1.name, "pair", n) or default_window_size_pair(n)  # the commit's window
     nwin = -(-SCALAR_BITS // wp)
     S = [c[8 : 8 + nwin] for c in P]
     want, p_ms = cuda_ms_once(lambda: horner_plain(BLS12_381_FQ, S, wp))
@@ -1627,7 +1737,7 @@ def main() -> int:
 
     # K7 denom and K6 on the co-Z MSM's first-round operands: (W, s0, L)
     # column slices of the fused (W, s0, 2L) pair rows, r^2 and r^3 per window
-    w = default_window_size_coz(n)
+    w = tuned_window(BLS12_381_G1.name, "coz", n) or default_window_size_coz(n)  # the co-Z MSM's
     sizes = _plan_sizes(n, 1 << (w - 1))
     key, data = _bucket_rows(msm.ops, bases, torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1), w)
     _, ra, rb = _pair_up(key, data, sizes[0] if sizes else n)
@@ -1698,7 +1808,7 @@ def main() -> int:
     log_chunk = min(10, args.log_n // 2)
     chunk = 1 << log_chunk
     c_a, c_b = n >> log_chunk, 4 * (n >> log_chunk)
-    wb = default_window_size_pair(chunk)
+    wb = tuned_window(BLS12_381_G1.name, "pair", chunk) or default_window_size_pair(chunk)  # the batch's
     nwin_b, half_b = -(-SCALAR_BITS // wb), 1 << (wb - 1)
     scal_a_np = random_field(rng, BLS12_381_FR, n)  # plain Fr integers, rows 0-2: 0, 1, r - 1
     scal_a = torch.as_tensor(scal_a_np).to(dev, torch.int32)
@@ -2046,6 +2156,10 @@ def main() -> int:
     # 4h. the digit NTT at 2^22 .. 2^26: both routes at 2^26, BN254 chunked,
     # the batch, K2's int8 entry at the final pass's shape
     phase_ntt_large(dev, report, check, card)
+
+    # 4i. the bucket lattice: unsigned and signed G1 MSMs, multiexp_1bit, an
+    # unsigned G2 MSM, and the window the table gives the commit
+    phase_lattice(dev, card, nc, bases_aff, sum(commit_ms) / 3, args.log_n)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

@@ -1005,3 +1005,65 @@ def test_g2_chains_odd_tiles(cuda, curve):
             got, want = ec_fft_stage(spec.base, Y, tw, s, ext=2), ec_fft_stage_plain(spec.base, Y, tw, s, ext=2)
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (lg, s)
             Y = list(want)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096 + 16, 3 * 256 + 77])
+def test_inter_int8_kernel_tiles(cuda, n):
+    """K2's int8 entry (a tile of 256 columns a block, staged in shared
+    memory) at n = 1, a tile edge, a tile and one, whole tiles plus a
+    16-column tail, and an odd ragged n: canonical planes and rows and int8
+    digits out, one constant twiddle and twiddle rows (t_rep 1, and 2 where
+    n is even); the int32 entry beside it.  Each == its plain version."""
+    spec = tfp.BLS12_381_FR
+    rng = np.random.default_rng(20 + n)
+    dig = torch.as_tensor(rng.integers(0, 128, (37, n))).to(cuda, torch.int8)
+    dig[:, 0] = 127
+    t = torch.as_tensor(_field(spec, max(n, 8), 21)).to(cuda, torch.int32)
+    cases = [(t[3], dict(const_t=True))] + [(t[: n // r].contiguous(), dict(t_rep=r)) for r in (1, 2) if n % r == 0]
+    for t16, kw in cases:
+        for canonical, rows in ((True, False), (True, True), (False, False)):
+            want = inter_twiddle_plain(spec, dig, t16, canonical=canonical, **kw)
+            got = inter_twiddle(spec, dig, t16, canonical=canonical, out_rows=rows, **kw)
+            assert torch.equal(got, want.T if rows else want), (kw, canonical, rows)
+    cols = torch.as_tensor(rng.integers(0, (1 << 7) * 37 * 127 * 127, (40, n))).to(cuda, torch.int32)
+    for canonical in (False, True):
+        want = inter_twiddle_plain(spec, cols, t[:n].contiguous(), canonical=canonical)
+        assert torch.equal(inter_twiddle(spec, cols, t[:n].contiguous(), canonical=canonical), want)
+
+
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", "BN254_G1", "BLS12_381_G2"])
+def test_lattice_msm_matches_native(cuda, curve):
+    """The bucket lattice on the card at n = 2^10 (G1) or 2^8 (G2):
+    ``multiexp(signed=False)`` ("auto" = the lattice; identity base and zero
+    scalar rows included), ``method="lattice"`` signed and ``multiexp_1bit``,
+    each == the native Pippenger, with K3's launches (G1 or Fq2, one
+    Horner) as ``lattice_steps`` counts them."""
+    from tpu_ec_torch import curves, kernels
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.msm import (MultiexpKernel, default_num_groups, default_window_size, lattice_steps,
+                                      multiexp_1bit)
+
+    spec = getattr(curves, curve)
+    nc = native_curve(spec)
+    n = 1 << (8 if spec.ext == 2 else 10)
+    _, aff = _g2_native_points(nc, n, 40)
+    aff[5] = 0  # an identity base
+    bases = _to_port(nc, aff, 2, cuda)
+    rng = np.random.default_rng(41)
+    s = rng.integers(0, 1 << 16, (n, 16), dtype=np.int64)
+    s[:, -1] &= 0x0FFF  # below r
+    s[0] = 0
+    scal = torch.as_tensor(s).to(cuda, torch.int32)
+    want = nc.to_affine(nc.msm(aff, nc.fr.from_halflimbs(s.astype(np.uint64)))[None, :])
+    kern = MultiexpKernel(spec, cuda)
+    names = ("point", "point_horner") if spec.ext == 1 else ("point_fp2", "point_horner_fp2")
+    for run, w, signed in ((lambda: kern.multiexp(bases, scal, signed=False), None, False),
+                           (lambda: kern.multiexp(bases, scal, method="lattice"), None, True),
+                           (lambda: multiexp_1bit(spec, bases, scal, device=cuda), 1, False)):
+        kernels.reset_launch_counters()
+        got = run()
+        counts = kernels.launch_counters()
+        w = w or default_window_size(n)
+        G = default_num_groups(n, w)
+        assert (counts[names[0]], counts[names[1]]) == (sum(lattice_steps(-(-n // G), G, w, signed).values()), 1)
+        assert np.array_equal(nc.to_affine(_to_native(nc, got)), want), (w, signed)

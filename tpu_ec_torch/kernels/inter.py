@@ -1,7 +1,10 @@
 """K2: the digit-NTT inter-level twiddle, and its plain version.
 
 Replaces ``tpu_ec/ops/ntt_digit.py::_inter_call`` (entry ``inter_twiddle``),
-both of its inputs.  The kernel is ``csrc/inter.cu``.  One pass per column:
+both of its inputs.  The kernels are ``csrc/inter.cu``: one thread a column
+for int32 columns, and for int8 digits a kernel of its own that stages a
+tile of columns through shared memory (16-byte loads in, coalesced rows
+out).  One pass per column:
 raw int32 GEMM columns, or 37 int8 base-2^7 digits (``_inter_call``'s
 ``in_i8``, counted apart), -> the value v < 2^288 -> u = v * T' / 2^288
 (Montgomery with R' = 2^288, T' = twiddle * 2^288 mod p, so u = v * twiddle

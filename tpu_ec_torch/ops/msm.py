@@ -1,15 +1,18 @@
 """Pippenger multi-scalar multiplication (MSM / "multiexp") entry point.
 
-PyTorch counterpart of ``tpu_ec/ops/msm.py`` for signed digits: window
-digits (``make_digits``), chunk sizing by device memory
+PyTorch counterpart of ``tpu_ec/ops/msm.py``: window digits
+(``make_digits``, signed or unsigned), chunk sizing by device memory
 (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
 engine (``ops/msm_pair.py``, the commit pipeline's), the co-Z engine
-(``ops/msm_coz.py``) or the scan engine (``ops/msm_scan.py``, the one G2
-runs on, as in tpu_ec: the other two are G1-only), with
-oversized inputs split into chunks whose partial sums are added on the
-device, and ``MultiexpKernel.multiple_multiexp``, the batch of independent
-MSMs of the AMT workload (``tpu_ec/ops/msm_batch.py``), in slabs of chunks
-sized by device memory (``batch_slab``).
+(``ops/msm_coz.py``), the scan engine (``ops/msm_scan.py``, the one G2
+runs on, as in tpu_ec: the other two are G1-only) or the bucket lattice
+below (``msm_lattice``, the one engine that takes unsigned digits, G1 and
+G2), with oversized inputs split into chunks whose partial sums are added
+on the device, and ``MultiexpKernel.multiple_multiexp``, the batch of
+independent MSMs of the AMT workload (``tpu_ec/ops/msm_batch.py``), in
+slabs of chunks sized by device memory (``batch_slab``).  The window
+comes from the argument, then (one MSM) ``config.msm_window``, then the
+card's measured table (``ops/autotune.py``), then the engine's model.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..curves.params import CurveSpec
 from ..curves.point import PointOps
 from ..errors import Aborted
 from ..fields.limbs import resolve_device
+from ..kernels.point import horner
 
 SCALAR_BITS = 256  # Fr limb width for both supported curves (16 x 16-bit)
 
@@ -56,6 +60,107 @@ def make_digits(scalars: torch.Tensor, w: int, num_windows: int, signed: bool) -
     raws = _window_raws(scalars, w, num_windows)
     d = _recode_signed(raws, w) if signed else torch.stack(raws, dim=-1)
     return d.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The bucket lattice (tpu_ec/ops/msm.py:57-224): the engine of unsigned
+# digits, and of method="lattice" with either sign
+# ---------------------------------------------------------------------------
+
+
+def default_window_size(n: int) -> int:
+    """The lattice's window: tpu_ec's model, ~log2(n) - 10, in [2, 12]
+    (1 for n <= 1)."""
+    if n <= 1:
+        return 1
+    return max(2, min(12, n.bit_length() - 11))
+
+
+def default_num_groups(n: int, window_size: int) -> int:
+    """The lattice's groups G, a power of two: tpu_ec's model, G x W ~ 4096
+    lanes, halved while G x W exceeds 4 n."""
+    num_windows = -(-SCALAR_BITS // window_size)
+    g = max(1, 4096 // num_windows)
+    g = 1 << (g - 1).bit_length()  # round up to a power of two (the tree needs it)
+    while g > 1 and g * num_windows > 4 * n:
+        g //= 2
+    return g
+
+
+def prepare_inputs(bases, scalars: torch.Tensor, num_groups: int):
+    """Pad n to m G with identity points (0, 0) and zero scalars, add one
+    zero limb to the scalars (the windows' cross-limb reads) and reshape to
+    the (m, G) lattice: -> ((x, y) of (m, G, L), (m, G, Ls + 1), m)."""
+    n = bases[0].shape[0]
+    G = num_groups
+    m = -(-n // G)
+    pad = m * G - n
+    points = tuple(torch.cat([c, c.new_zeros((pad,) + c.shape[1:])]).reshape(m, G, -1) for c in bases)
+    s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1)
+    s = torch.cat([s, s.new_zeros((pad, s.shape[1]))]).reshape(m, G, -1)
+    return points, s, m
+
+
+def lattice_steps(m: int, G: int, window_size: int, signed: bool) -> dict:
+    """K3 launches of ``msm_lattice`` on an (m, G) lattice: m add_mixed
+    (one a step), 2 (nbuckets - 1) + log2(G) adds (the bucket reduction,
+    the group tree) and one Horner."""
+    nbuckets = (1 << (window_size - 1) if signed else (1 << window_size) - 1) + 1
+    return {"add_mixed": m, "add": 2 * (nbuckets - 1) + (G.bit_length() - 1), "horner": 1}
+
+
+def msm_lattice(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int, signed: bool):
+    """One MSM on the bucket lattice -> a Jacobian point, batch (1,).
+
+    ``points``: affine (x, y) of (m, G, L); ``scalars``: (m, G, Ls + 1)
+    plain zero-padded limbs (``prepare_inputs``).  The buckets are one
+    (nbuckets, G W, 3L) row table, slot 0 the dummy of digit 0.  Step t
+    gathers the (G, W) slots that row t's digits name, adds the points
+    (K3 ``add_mixed``, y negated where a signed digit is negative) and
+    scatters back: within a step every (group, window) lane owns its own
+    slot, so the scatter's rows are distinct.  Digit-0 lanes keep their
+    bucket (``keep``): tpu_ec adds them into slot 0, which nothing reads, so
+    the result is the same.  Then tpu_ec's triangular running-sum
+    reduction over the slots (two K3 adds a slot), the halving tree over
+    the groups, and the window combine in one K3 Horner launch (its
+    doubling and add order is tpu_ec's loop's, so the Jacobian result is
+    tpu_ec's bit for bit)."""
+    from .msm_scan import _unfuse
+
+    w = window_size
+    W = -(-SCALAR_BITS // w)
+    nbuckets = (1 << (w - 1) if signed else (1 << w) - 1) + 1
+    m, G = scalars.shape[:2]
+    L, GW = ops.width, G * W
+    x, y = points
+    digits = make_digits(scalars.reshape(m * G, -1), w, W, signed).reshape(m, GW)
+    rows = digits.abs().long() * GW + torch.arange(GW, device=digits.device)
+    idle = digits == 0
+    if signed:
+        y_neg = ops.F.neg(y)
+        negative = (digits < 0).reshape(m, G, W, 1)
+    buckets = x.new_zeros((nbuckets * GW, 3 * L))
+    cur, new = x.new_empty((GW, 3 * L)), x.new_empty((GW, 3 * L))
+    for t in range(m):
+        torch.index_select(buckets, 0, rows[t], out=cur)
+        ax = x[t].unsqueeze(1).expand(G, W, L)
+        ay = y[t].unsqueeze(1).expand(G, W, L)
+        if signed:
+            ay = torch.where(negative[t], y_neg[t].unsqueeze(1), ay)
+        ops.add_mixed(_unfuse(cur, L, 3), (ax.reshape(GW, L), ay.reshape(GW, L)), keep=idle[t], out=new)
+        buckets.index_copy_(0, rows[t], new)
+
+    # sum_k k * bucket[k] by the running sum, k = nbuckets - 1 .. 1
+    slots = buckets.reshape(nbuckets, G, W, 3 * L)
+    running = acc = ops.identity_jacobian((G, W))
+    for k in range(nbuckets - 1, 0, -1):
+        running = ops.add(running, _unfuse(slots[k], L, 3))
+        acc = ops.add(acc, running)
+    g = G
+    while g > 1:
+        acc = ops.add(tuple(c[: g // 2] for c in acc), tuple(c[g // 2 : g] for c in acc))
+        g //= 2
+    return horner(ops.spec.base, tuple(c[0] for c in acc), w, ext=ops.spec.ext)
 
 
 # int32 coordinate-sized arrays live per point and window at the peak of the
@@ -126,13 +231,16 @@ def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
 
 # engines of tpu_ec's multiexp that the port has not ported yet, and where
 # ROADMAP.md queues them
-_NOT_PORTED = {"sorted": "item 9", "lattice": "item 5"}
+_NOT_PORTED = {"sorted": "item 9"}
 
 
-def _auto(spec: CurveSpec) -> str:
+def _auto(spec: CurveSpec, signed: bool = True) -> str:
     """The engine "auto" picks, as tpu_ec's does on an accelerator
-    (tpu_ec/ops/msm.py:393-405, 515-522): the pair engine on G1, the scan
-    engine on G2 (the pair and co-Z engines are G1-only)."""
+    (tpu_ec/ops/msm.py:393-405, 515-522): the lattice for unsigned digits,
+    else the pair engine on G1 and the scan engine on G2 (the pair and
+    co-Z engines are G1-only)."""
+    if not signed:
+        return "lattice"
     return "pair" if spec.ext == 1 else "scan"
 
 
@@ -152,7 +260,7 @@ class MultiexpKernel:
             raise Aborted("MSM aborted by hook")
 
     def multiexp(self, bases, scalars: torch.Tensor, *, window_size: int | None = None,
-                 method: str = "auto"):
+                 num_groups: int | None = None, signed: bool = True, method: str = "auto"):
         """sum_i scalars[i] * bases[i] -> one Jacobian point (batch (1,)).
 
         ``bases`` are affine (x, y) of (n, L) ((0, 0) = identity; L =
@@ -160,29 +268,49 @@ class MultiexpKernel:
         are (n, Ls) plain-integer limbs (not Montgomery; see
         ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
         pair-halving engine, which "auto" picks on G1), "coz" (the co-Z
-        scaled-affine engine) or "scan" (the masked segmented-scan engine,
-        which "auto" picks on G2)."""
+        scaled-affine engine), "scan" (the masked segmented-scan engine,
+        which "auto" picks on G2), all three on signed digits only, or
+        "lattice" (the bucket lattice, signed or unsigned digits, which
+        "auto" picks for ``signed=False``; ``num_groups`` G, else
+        ``default_num_groups``; it runs whole, whatever ``chunk_size``, and
+        takes ``window_size`` or ``default_window_size``, as tpu_ec's
+        does).  The other engines take ``window_size``, else
+        ``config.msm_window``, else the card's table (``tuned_window``),
+        else the engine's model."""
+        from .autotune import tuned_window
         from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
         from .msm_scan import default_window_size_scan, msm_scan
 
         self._check_abort()
         if method == "auto":
-            method = _auto(self.spec)
+            method = _auto(self.spec, signed)
         if method in _NOT_PORTED:
             raise NotImplementedError(
                 f"MSM engine {method!r} is not ported yet (ROADMAP.md queue 1, {_NOT_PORTED[method]})"
             )
+        n = bases[0].shape[0]
+        if method == "lattice":
+            w = window_size or default_window_size(n)
+            G = num_groups or default_num_groups(n, w)
+            if G < 1 or G & (G - 1):
+                raise ValueError(f"num_groups must be a power of two (the groups' halving tree), got {G}")
+            get_logger("tpu_ec_torch.msm").info(
+                "MSM n=%d curve=%s engine=lattice window=%d groups=%d signed=%s", n, self.spec.name, w, G, signed
+            )
+            points, s, _ = prepare_inputs(bases, scalars, G)
+            return msm_lattice(self.ops, points, s, window_size=w, signed=signed)
         engines = {"pair": (msm_pair, default_window_size_pair),
                    "coz": (msm_coz, default_window_size_coz),
                    "scan": (msm_scan, default_window_size_scan)}
         if method not in engines:
             raise ValueError(f"unknown MSM method {method!r}")
-        n = bases[0].shape[0]
+        if not signed:
+            raise ValueError(f"the {method} engine takes signed digits only; use method='lattice'")
         if n > self.chunk_size:
             return self._multiexp_chunked(bases, scalars, window_size, method)
         engine, default_w = engines[method]
-        w = window_size or get_config().msm_window or default_w(n)
+        w = window_size or get_config().msm_window or tuned_window(self.spec.name, method, n) or default_w(n)
         get_logger("tpu_ec_torch.msm").info(
             "MSM n=%d curve=%s engine=%s window=%d", n, self.spec.name, method, w
         )
@@ -206,7 +334,8 @@ class MultiexpKernel:
         return acc
 
     def multiple_multiexp(self, bases, scalars: torch.Tensor, num_chunks: int, *,
-                          window_size: int | None = None, method: str = "auto"):
+                          window_size: int | None = None, num_groups: int | None = None, signed: bool = True,
+                          method: str = "auto"):
         """``num_chunks`` independent MSMs over equal slices of ``bases``
         (ag-cuda-ec/src/multiexp.rs:21-81: chunk c takes bases and scalar
         rows [c * n, (c + 1) * n)) -> a Jacobian batch of num_chunks points.
@@ -214,29 +343,34 @@ class MultiexpKernel:
         ``method``: "pair" (the flat one-sort engine: the pair engine with a
         chunk axis, which "auto" picks on G1) or "scan" (the scan engine with
         a chunk axis, "auto" on G2) run the batch in slabs of chunks sized from the device
-        memory (``batch_slab``); the window is ``window_size`` or the
-        engine's model at the chunk size.  Any other method runs one
-        ``multiexp`` per chunk."""
+        memory (``batch_slab``); the window is ``window_size``, else the
+        card's table at the chunk size (``tuned_window``), else the engine's
+        model there (``config.msm_window`` is not read, as in tpu_ec).  Any
+        other method, and "auto" with ``signed=False`` (the lattice), runs
+        one ``multiexp`` per chunk."""
         n = bases[0].shape[0]
         if num_chunks <= 0 or n % num_chunks:
             raise ValueError(f"bases must split evenly into chunks: {n} points, {num_chunks} chunks")
         chunk = n // num_chunks
         if method == "auto":
-            method = _auto(self.spec)
+            method = _auto(self.spec, signed)
         if method not in ("pair", "scan"):
             outs = []
             for c in range(num_chunks):
                 self._check_abort()
                 sl = slice(c * chunk, (c + 1) * chunk)
                 outs.append(self.multiexp(tuple(t[sl] for t in bases), scalars[sl], window_size=window_size,
-                                          method=method))
+                                          num_groups=num_groups, signed=signed, method=method))
             return tuple(torch.cat(parts) for parts in zip(*outs))
+        if not signed:
+            raise ValueError(f"the {method} engine takes signed digits only; use method='lattice'")
+        from .autotune import tuned_window
         from .msm_pair import default_window_size_pair, msm_pair
         from .msm_scan import default_window_size_scan, msm_scan
 
         engine, default_w = {"pair": (msm_pair, default_window_size_pair),
                              "scan": (msm_scan, default_window_size_scan)}[method]
-        w = window_size or default_w(chunk)
+        w = window_size or tuned_window(self.spec.name, method, chunk) or default_w(chunk)
         slab = min(batch_slab(self.spec, method, chunk, w, self.device), num_chunks)
         get_logger("tpu_ec_torch.msm").info(
             "batch MSM %d chunks of %d curve=%s engine=%s window=%d slab=%d",
@@ -262,3 +396,19 @@ class MultiexpKernel:
             torch.as_tensor(t).to(device=self.device, dtype=self.ops.fq.dtype).contiguous()
             for t in bases
         )
+
+
+# -- functional convenience ---------------------------------------------------
+
+
+def msm(spec: CurveSpec, bases, scalars: torch.Tensor, *, device="cuda", **kw):
+    """``MultiexpKernel(spec, device).multiexp(bases, scalars, **kw)``."""
+    return MultiexpKernel(spec, device).multiexp(bases, scalars, **kw)
+
+
+def multiexp_1bit(spec: CurveSpec, bases, scalars: torch.Tensor, num_groups: int | None = None, *,
+                  device="cuda"):
+    """The 1-bit-window MSM (``ag-build/cl/batch_multiexp.cl:11-55``): window
+    1, unsigned digits, one bucket a scalar bit, on the lattice."""
+    return MultiexpKernel(spec, device).multiexp(bases, scalars, window_size=1, signed=False, method="lattice",
+                                                 num_groups=num_groups)
