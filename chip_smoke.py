@@ -128,10 +128,29 @@ Phases, each failing the run on any error:
    ``method="lattice"`` on G1 at 2^16 (phase 4's first points), with
    ``multiexp_1bit`` on the same, and an unsigned G2 MSM at 2^12, each
    against the native Pippenger, with ms (mean of 3), the window, groups
-   and steps, K3 launches against ``lattice_steps`` and peak memory; the
-   window the card's table (``ops/tuned_windows.json``) gives the commit,
-   beside phase 4's commit ms (phases 4, 4c, 4e and 4g take their windows
-   as the engines do: the table, else the model);
+   and steps, K3 launches against ``lattice_steps`` and peak memory; for
+   the unsigned G1 MSM the bound of its K3 work (the products of its
+   launches at ``mont_imads`` over the IMAD rate, beside the bytes) and its
+   device time (torch.profiler); the window the card's table
+   (``ops/tuned_windows.json``) gives the commit, beside phase 4's commit
+   ms (phases 4, 4c, 4e and 4g take their windows as the engines do: the
+   table, else the model);
+4j. the multi-device layer (``tpu_ec_torch.parallel``) in an NCCL process
+   group of world size 1, started from a FileStore (NCCL takes one rank a
+   card, so the exchanges are degenerate here; d >= 2 runs in the CPU
+   tests), after a group started with no backend named, whose probed mesh
+   must be on the card too: ``dryrun_multichip(1)`` in a spawned rank; ``DistFftKernel`` at
+   2^26 (n1 = n2 = 2^13, digit local stages, its own seed) against the
+   single-card transform on every row, the inverse against the input,
+   first-call seconds, ms of both directions, peak, the K1 / K2 / K2-int8
+   launches of a call against ``digit_launches`` of both stages and a
+   profile of one call; ``DistMultiexpKernel`` on phase 4's bases and
+   scalars with ``dist_msm_accum`` "pair" and "scan", each against the
+   commitment (affine), with ms, window, K3 launches and peak;
+   ``DistEcFftKernel`` on phase 4f's 16 x 2^11 batch against its output;
+   ``multiexp(method="sorted")`` on phase 4's data against the commitment,
+   its K3 launches against ``sorted_steps``, ms beside the pair engine's,
+   a profile of one call;
 5. a JSON line of the kernels, the card line again, and the result line.
 
 Every path runs with the launch counters set to 0 just before it and read
@@ -1169,23 +1188,24 @@ def phase_ntt_large(dev, report, check, card: str) -> None:
     print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int) -> None:
+def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, imad_rate: float) -> None:
     """Phase 4i: the bucket lattice on BLS12-381 at full width, each output
     against the native Pippenger: ``multiexp(signed=False)`` ("auto" = the
     lattice) and ``method="lattice"`` signed on G1 at 2^16 (phase 4's first
     points), ``multiexp_1bit`` on the same, an unsigned G2 lattice at 2^12;
-    ms, K3 launches against ``lattice_steps``, peak memory; then the window
-    the table gives the commit."""
+    ms, K3 launches against ``lattice_steps``, peak memory; for the G1
+    unsigned case its K3 work's bound and its device time (torch.profiler);
+    then the window the table gives the commit."""
     import numpy as np
     import torch
 
     from tpu_ec_torch import kernels
     from tpu_ec_torch.curves.params import BLS12_381_G1, BLS12_381_G2
-    from tpu_ec_torch.fields.params import BLS12_381_FR
+    from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR
     from tpu_ec_torch.native import native_curve
     from tpu_ec_torch.ops.autotune import tuned_window
-    from tpu_ec_torch.ops.msm import (MultiexpKernel, default_num_groups, default_window_size, lattice_steps,
-                                      multiexp_1bit)
+    from tpu_ec_torch.ops.msm import (SCALAR_BITS, MultiexpKernel, default_num_groups, default_window_size,
+                                      lattice_steps, make_digits, multiexp_1bit)
     from tpu_ec_torch.ops.msm_pair import default_window_size_pair
 
     t_phase = time.perf_counter()
@@ -1206,6 +1226,35 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int) -
         ("G2 multiexp(signed=False) ('auto' = lattice)", g2, ncg2, aff2, None, False,
          lambda b, s: g2.multiexp(b, s, signed=False)),
     )
+    def lattice_bound(label, n, w, G, steps, scal, fn):
+        """The bound of the lattice's K3 work on this run's digits: the
+        add_mixed rows of a nonzero digit (11 products each), every row of
+        the reduction's and the group tree's adds (16), the Horner's
+        products (``horner_work`` on a window sum a window); at
+        ``mont_imads(12)`` over the IMAD rate, beside the bytes K3 reads
+        and writes; and the device time of one call (torch.profiler)."""
+        L = BLS12_381_FQ.n_limbs
+        W = -(-SCALAR_BITS // w)
+        m = steps["add_mixed"]
+        digits = make_digits(torch.cat([scal, scal.new_zeros((n, 1))], dim=1), w, W, False)
+        adding = int((digits != 0).sum())
+        nb = (1 << w) - 1
+        tree = sum(G >> (k + 1) for k in range(G.bit_length() - 1))
+        adds = 2 * nb * G * W + tree * W
+        horner = W * (7 * w + 16)
+        prods = 11 * adding + 16 * adds + horner
+        t_ops = prods * mont_imads(L // 2) / imad_rate * 1e3
+        nbytes = 4 * L * (m * G * W * 8 + adds * 9)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        split, busy, _ = traced(fn, label)
+        k3 = sum(v[0] for k, v in split.items() if k.startswith("K3"))
+        bound = max(t_ops, t_bytes)
+        print(f"{label} 2^{n.bit_length() - 1} bound: {adding} add_mixed rows of a nonzero digit, {adds} add rows, "
+              f"{horner} Horner products = {prods} Fq products x {mont_imads(L // 2)} IMADs: {t_ops:.4f} ms; "
+              f"bytes {t_bytes:.4f} ms; bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}); "
+              f"device busy {busy:.4f} ms, K3 {k3:.4f} ms in {sum(v[1] for k, v in split.items() if k.startswith('K3'))}"
+              f" launches, K3 / bound {k3 / bound:.2f}, busy / bound {busy / bound:.2f} | {card}", flush=True)
+
     for label, kern, ncv, aff, w, signed, run in cases:
         n = aff.shape[0]
         ext = kern.spec.ext
@@ -1234,6 +1283,8 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int) -
               f"({', '.join(f'{t:.2f}' for t in runs)}); w = {w}, G = {G}, {steps['add_mixed']} steps; K3 launches "
               f"{counts[owned[0]]} == the plan's {want_k3} ({steps}); peak {peak / 2**30:.3f} GiB above the inputs "
               f"| {card}", flush=True)
+        if ext == 1 and not signed and w > 1:
+            lattice_bound(label, n, w, G, steps, scal, lambda: run(bases, scal))
         del bases, scal, got
         torch.cuda.empty_cache()
     n = 1 << log_n
@@ -1241,6 +1292,197 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int) -
     print(f"commit 2^{log_n}: the pair engine's window from the table {w_tab} (the model's {w_model}); the commit "
           f"{commit_ms:.1f} ms mean of 3 (phase 4) | {card}", flush=True)
     print(f"phase 4i: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_dist(dev, card: str, pipe, bases, scalars, commitment, many_in, many_out) -> None:
+    """Phase 4j: the multi-device layer (``tpu_ec_torch.parallel``) in an
+    NCCL process group of world size 1 on cuda:0, started here from a
+    FileStore: ``dryrun_multichip(1)`` (its own spawned rank); the
+    distributed NTT at 2^26 (digit route) against the single-card transform
+    on every row, its inverse against the input, K1 / K2 / K2-int8 launches
+    of a call against the plan's, a profile of one call; the distributed MSM on phase 4's bases and
+    scalars with both accumulations against the commitment; the
+    distributed EC-FFT of phase 4f's batch; the sorted engine against the
+    commitment, beside the pair engine.  One rank a card: NCCL refuses two
+    ranks of one communicator on one card, so the exchanges here are
+    degenerate; d >= 2 runs in the CPU tests (gloo)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ec_torch import kernels
+    from tpu_ec_torch.config import get_config
+    from tpu_ec_torch.curves.params import BLS12_381_G1, BN254_G1
+    from tpu_ec_torch.entry import dryrun_multichip
+    from tpu_ec_torch.fields.params import BLS12_381_FR
+    from tpu_ec_torch.ops import ntt_digit as nd
+    from tpu_ec_torch.ops.msm import MultiexpKernel
+    from tpu_ec_torch.ops.msm_sorted import default_window_size_sorted, sorted_steps
+    from tpu_ec_torch.ops.ntt import FftKernel
+    from tpu_ec_torch.parallel import DistEcFftKernel, DistFftKernel, DistMultiexpKernel, make_mesh, shard_leading
+    from tpu_ec_torch.parallel.msm_dist import dist_window
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp()
+    torch.cuda.set_device(0)
+    # a group started with no backend named ("cpu:gloo,cuda:nccl" on a card)
+    # puts the mesh on the card as an NCCL group does; its probe is a K1
+    # launch and an all_gather through NCCL
+    dist.init_process_group(store=dist.FileStore(os.path.join(tmp, "store0"), 1), rank=0, world_size=1)
+    try:
+        backends, m0 = dist.get_backend_config(), make_mesh(probe=True)
+    finally:
+        dist.destroy_process_group()
+    if m0 is None or m0.device.type != "cuda":
+        raise SystemExit(f"a process group with backends {backends!r} put the mesh on {m0 and m0.device}")
+    print(f"phase 4j: a group with no backend named ({backends}) gives {m0}", flush=True)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        print(f"phase 4j: process group backend {dist.get_backend()}, world size {dist.get_world_size()}, {mesh}",
+              flush=True)
+        t0 = time.perf_counter()
+        dryrun_multichip(1)
+        print(f"dryrun_multichip(1): the 2^14 NTT == ntt_ref, the 2^10 MSM == native Pippenger, in a spawned NCCL "
+              f"rank; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+        # the distributed NTT at 2^26 (n1 = n2 = 2^13, the digit route's local stages)
+        log_n, spec = 26, BLS12_381_FR
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 6)  # its own seed: the other phases' inputs stay the parent's
+        x = torch.randint(0, 1 << 16, (1 << log_n, 16), generator=gen, device=dev, dtype=torch.int32)
+        x[:, -1] = torch.randint(0, int(spec.p_limbs[-1]), (1 << log_n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        single = FftKernel(spec, dev)
+        y_single = single.radix_fft(x)
+        del single
+        torch.cuda.empty_cache()
+        kern = DistFftKernel(spec, mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = on_path(kernels, None, ("mont_mul", "inter_twiddle"), "distributed NTT 2^26 first call",
+                    lambda: kern.radix_fft(shard_leading(x, mesh)))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak_first = torch.cuda.max_memory_allocated() - base
+        plan = kern.plan(log_n, False)
+        if not plan.digit:
+            raise SystemExit("distributed NTT 2^26: the local stages did not take the digit route")
+        bad = int((y != y_single).any(dim=1).sum())
+        if bad:
+            raise SystemExit(f"distributed NTT 2^26: {bad} rows disagree with the single-card transform")
+        del y_single
+        want = {"mont_mul": 1, "inter_twiddle": 0, "inter_twiddle_i8": 0}  # K1: the twiddle multiply
+        for ln, M in ((plan.log_n1, plan.n2 // mesh.size), (plan.log_n2, plan.n1 // mesh.size)):
+            for k, v in digit_launches(nd.get_digit_domain(spec, ln, False, nd.leaf_log(ln)), M)[0].items():
+                want[k] += v
+        kernels.reset_launch_counters()
+        y2 = kern.radix_fft(x)
+        got = {k: kernels.launch_counters()[k] for k in want}
+        if got != want or not torch.equal(y, y2):
+            raise SystemExit(f"distributed NTT 2^26: launches {got} != the plan's {want}, or a second call differs")
+        del y2
+        back = kern.radix_fft(y, inverse=True)
+        if not torch.equal(back, x):
+            raise SystemExit("distributed NTT 2^26: the inverse does not give the input back")
+        del back
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: kern.radix_fft(x), iters=3)
+        ms_inv = cuda_ms(lambda: kern.radix_fft(y, inverse=True), iters=3)
+        peak = torch.cuda.max_memory_allocated() - base
+        split, busy, others = traced(lambda: kern.radix_fft(x), "distributed NTT 2^26")
+        print(f"profile distributed NTT 2^26: device busy {busy:.4f} ms; hand kernels "
+              + ", ".join(f"{name} {v[0]:.4f} ms in {v[1]}" for name, v in split.items())
+              + "; largest other device ops " + "; ".join(f"{o[0][:90]} {o[1]:.4f} ms in {o[2]}" for o in others)
+              + f" | {card}", flush=True)
+        print(f"distributed NTT 2^26 BLS12-381 Fr (d = 1, n1 = n2 = 2^13, digit local stages): == the single-card "
+              f"transform on all {1 << log_n} rows, inverse == input; first call {first_s:.2f} s (twiddle slice and "
+              f"tables included, peak {peak_first / 2**30:.2f} GiB above the input); {ms:.3f} ms mean of 3 forward, "
+              f"{ms_inv:.3f} ms inverse; peak {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held; "
+              f"launches a call {got} == the plan's | {card}", flush=True)
+        del kern, x, y
+        torch.cuda.empty_cache()
+
+        # the distributed MSM on phase 4's bases and scalars, both accumulations
+        n = scalars.shape[0]
+        ops = pipe.ops
+        want_aff = ops.to_affine(commitment)
+        cfg = get_config()
+        saved = cfg.dist_msm_accum
+        owned = ("point", "point_horner", "point_scalar_mul")
+        try:
+            for accum in ("pair", "scan"):
+                cfg.dist_msm_accum = accum
+                dk = DistMultiexpKernel(BLS12_381_G1, mesh)
+                run = lambda: dk.multiexp(shard_leading(bases, mesh), shard_leading(scalars, mesh))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = on_path(kernels, None, owned, f"distributed MSM 2^{n.bit_length() - 1} {accum}", run)
+                counts = {k: kernels.launch_counters()[k] for k in owned}
+                peak = torch.cuda.max_memory_allocated() - base
+                if not all(torch.equal(a, b) for a, b in zip(ops.to_affine(out), want_aff)):
+                    raise SystemExit(f"distributed MSM ({accum}) disagrees with the commitment")
+                ms, runs = host_ms(run)
+                print(f"distributed MSM 2^{n.bit_length() - 1} BLS12-381 G1 accum {accum} (d = 1): == the commitment "
+                      f"(affine); {ms:.2f} ms mean of 3 ({', '.join(f'{t:.2f}' for t in runs)}); window "
+                      f"{dist_window(n, mesh.size)}; K3 launches {counts}; peak {peak / 2**30:.2f} GiB above the "
+                      f"inputs | {card}", flush=True)
+                del out
+                torch.cuda.empty_cache()
+        finally:
+            cfg.dist_msm_accum = saved
+
+        # the distributed EC-FFT of phase 4f's batch
+        stacked = tuple(torch.stack(cs) for cs in zip(*many_in))
+        want_ec = tuple(torch.stack(cs) for cs in zip(*many_out))
+        ek = DistEcFftKernel(BN254_G1, mesh)
+        run = lambda: ek.radix_ec_fft_many(shard_leading(stacked, mesh))
+        out = on_path(kernels, None, ("ec_fft_stage",), f"distributed EC-FFT 16 x {stacked[0].shape[1]}", run)
+        if not all(torch.equal(a, b) for a, b in zip(out, want_ec)):
+            raise SystemExit("distributed EC-FFT disagrees with phase 4f's batch")
+        ms, runs = host_ms(run)
+        print(f"distributed EC-FFT BN254 G1 16 x 2^{stacked[0].shape[1].bit_length() - 1} (d = 1): == phase 4f's "
+              f"batch; {ms:.3f} ms mean of 3 ({', '.join(f'{t:.3f}' for t in runs)}) | {card}", flush=True)
+
+        # the sorted engine on phase 4's data, one engine call (chunk_size n)
+        mk = MultiexpKernel(BLS12_381_G1, dev, chunk_size=n)
+        w = default_window_size_sorted(n)
+        steps = sorted_steps(n, w)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = on_path(kernels, None, ("point", "point_horner"), f"sorted MSM 2^{n.bit_length() - 1}",
+                      lambda: mk.multiexp(bases, scalars, method="sorted"))
+        counts = {k: kernels.launch_counters()[k] for k in ("point", "point_horner")}
+        peak = torch.cuda.max_memory_allocated() - base
+        if counts != {"point": sum(steps.values()), "point_horner": 1}:
+            raise SystemExit(f"sorted MSM: K3 launches {counts}; sorted_steps predicts {steps}")
+        if not all(torch.equal(a, b) for a, b in zip(ops.to_affine(out), want_aff)):
+            raise SystemExit("sorted MSM disagrees with the commitment")
+        ms, runs = host_ms(lambda: mk.multiexp(bases, scalars, method="sorted"))
+        pair_ms, _ = host_ms(lambda: mk.multiexp(bases, scalars, method="pair"))
+        split, busy, others = traced(lambda: mk.multiexp(bases, scalars, method="sorted"), "sorted MSM")
+        print(f"profile sorted MSM 2^{n.bit_length() - 1}: device busy {busy:.4f} ms; hand kernels "
+              + ", ".join(f"{name} {v[0]:.4f} ms in {v[1]}" for name, v in split.items())
+              + "; largest other device ops " + "; ".join(f"{o[0][:90]} {o[1]:.4f} ms in {o[2]}" for o in others)
+              + f" | {card}", flush=True)
+        print(f"sorted MSM 2^{n.bit_length() - 1} BLS12-381 G1: == the commitment (affine); {ms:.2f} ms mean of 3 "
+              f"({', '.join(f'{t:.2f}' for t in runs)}) against the pair engine's {pair_ms:.2f} ms; w = {w}; K3 "
+              f"launches {counts['point']} == sorted_steps {steps}; peak {peak / 2**30:.2f} GiB above the inputs "
+              f"| {card}", flush=True)
+        del out
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 4j: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1977,7 +2219,7 @@ def main() -> int:
     print(f"radix_ec_fft_many 16 x 2^{lg_ec} BN254: each == its single call; {many_ms:.3f} ms mean of 3 "
           f"({', '.join(f'{t:.3f}' for t in many_runs)}), {16 * n_ec / many_ms * 1e3:.0f} points/s; 16 single "
           f"calls {single_ms:.3f} ms | {card}", flush=True)
-    del many_in, many_out, singles
+    del singles  # the batch and its output stay for phase 4j
 
     def chain_work(k):
         """(point ops, field products) of the chains on the plain scalars k
@@ -2159,7 +2401,12 @@ def main() -> int:
 
     # 4i. the bucket lattice: unsigned and signed G1 MSMs, multiexp_1bit, an
     # unsigned G2 MSM, and the window the table gives the commit
-    phase_lattice(dev, card, nc, bases_aff, sum(commit_ms) / 3, args.log_n)
+    phase_lattice(dev, card, nc, bases_aff, sum(commit_ms) / 3, args.log_n, imad_rate)
+
+    # 4j. the multi-device layer at world size 1 under NCCL: the dry run, the
+    # distributed NTT at 2^26, MSM at 2^n (both accumulations) and EC-FFT
+    # batch, and the sorted engine
+    phase_dist(dev, card, pipe, bases, scalars, commitment, many_in, many_out)
 
     # 5. summary lines
     print(report.json_line(), flush=True)

@@ -25,6 +25,7 @@ from tpu_ec.ops import msm as jmsm
 from tpu_ec_torch import curves
 from tpu_ec_torch.native import native_curve
 from tpu_ec_torch.ops import msm as tmsm
+from tpu_ec_torch.ops import msm_sorted as tsorted
 from tpu_ec_torch.ops.msm import MultiexpKernel, make_digits, multiexp_1bit
 
 
@@ -128,8 +129,8 @@ def test_prepare_inputs_matches_tpu_ec():
 
 def test_routing(monkeypatch):
     """"auto" with signed=False runs the lattice (one MSM, and each chunk of
-    a batch); the pair, scan and co-Z engines refuse unsigned digits; the
-    sorted engine is the one left unported."""
+    a batch); the pair, scan, co-Z and sorted engines refuse unsigned
+    digits; "sorted" runs the sorted engine at its model's window."""
     seen = []
 
     def lattice(ops, points, scalars, **kw):
@@ -146,15 +147,15 @@ def test_routing(monkeypatch):
     assert seen[-1] == {"window_size": 3, "signed": True}
     with pytest.raises(ValueError, match="power of two"):
         kern.multiexp(bases, scal, signed=False, num_groups=3)
-    for method in ("pair", "scan", "coz"):
+    for method in ("pair", "scan", "coz", "sorted"):
         with pytest.raises(ValueError, match="signed digits only"):
             kern.multiexp(bases, scal, signed=False, method=method)
     for method in ("pair", "scan"):
         with pytest.raises(ValueError, match="signed digits only"):
             kern.multiple_multiexp(bases, scal, 2, signed=False, method=method)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        kern.multiexp(bases, scal, method="sorted")
-    assert tmsm._NOT_PORTED == {"sorted": "item 9"}
+    monkeypatch.setattr(tsorted, "msm_sorted", lambda ops, points, s, **kw: seen.append(kw) or "sorted")
+    assert kern.multiexp(bases, scal, method="sorted") == "sorted"
+    assert seen[-1] == {"window_size": tsorted.default_window_size_sorted(8)}
 
     def one(self, b, s, **kw):
         seen.append(kw)

@@ -13,6 +13,10 @@ ntt_impl                     TPU_EC_TORCH_NTT_IMPL             ops/ntt (log_n >=
 ntt_leaf_log                 TPU_EC_TORCH_NTT_LEAF_LOG         ops/ntt_fused
 msm_window                   TPU_EC_TORCH_MSM_WINDOW           ops/msm (None = auto)
 msm_hbm_budget_bytes         TPU_EC_TORCH_HBM_BUDGET           ops/msm.device_budget_bytes
+num_threads                  TPU_EC_TORCH_NUM_THREADS          utils/threadpool
+timer                        TPU_EC_TORCH_TIMER                utils/timer
+min_devices                  TPU_EC_TORCH_MIN_DEVICES          parallel/mesh policy
+dist_msm_accum               TPU_EC_TORCH_DIST_MSM_ACCUM       parallel/msm_dist
 log_level                    TPU_EC_TORCH_LOG                  get_logger
 ==========================  ================================  ======================
 
@@ -70,6 +74,17 @@ class Config:
     # device-memory budget for MSM chunk sizing; None = the free memory the
     # card reports (torch.cuda.mem_get_info), or 4 GiB on the CPU
     msm_hbm_budget_bytes: int | None = None
+    # host worker pool size (utils/threadpool); 0 = the CPU count
+    num_threads: int = 0
+    # per-phase wall-clock timing (utils/timer), off by default
+    timer: bool = False
+    # the fewest devices make_mesh may degrade to before it raises
+    min_devices: int = 1
+    # bucket accumulation of the distributed MSM on each rank: "pair" (the
+    # pair engine, ops/msm_pair.py) or "scan" (ops/msm_scan.py, ~log2(n)
+    # times the adds).  tpu_ec defaults to "scan" for its XLA-CPU compile
+    # time only; the port compiles nothing per shape
+    dist_msm_accum: str = "pair"
     log_level: str = "WARNING"
 
     @classmethod
@@ -83,6 +98,10 @@ class Config:
             ntt_leaf_log=_env_int("TPU_EC_TORCH_NTT_LEAF_LOG", None) or NTT_LEAF_LOG_DEFAULT,
             msm_window=_env_int("TPU_EC_TORCH_MSM_WINDOW", None),
             msm_hbm_budget_bytes=_env_int("TPU_EC_TORCH_HBM_BUDGET", None),
+            num_threads=_env_int("TPU_EC_TORCH_NUM_THREADS", 0) or 0,
+            timer=_env_bool("TPU_EC_TORCH_TIMER", False),
+            min_devices=_env_int("TPU_EC_TORCH_MIN_DEVICES", 1) or 1,
+            dist_msm_accum=os.environ.get("TPU_EC_TORCH_DIST_MSM_ACCUM") or "pair",
             log_level=os.environ.get("TPU_EC_TORCH_LOG", "WARNING"),
         )
 

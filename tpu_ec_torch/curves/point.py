@@ -19,6 +19,8 @@ Montgomery batch inversion, and ``eq`` compares by cross-multiplication
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..fields.fp import FieldOps
@@ -44,6 +46,12 @@ class PointOps:
         self.width = spec.ext * self.L  #: half-limbs of one coordinate
 
     # -- constructors / predicates ----------------------------------------
+
+    @functools.cached_property
+    def generator_affine(self):
+        """(x, y) of the subgroup generator, Montgomery, batch shape ()."""
+        x, y = self.from_affine_ints([(self.spec.gen_x, self.spec.gen_y)])
+        return x[0], y[0]
 
     def identity_jacobian(self, batch_shape=()):
         z = torch.zeros(tuple(batch_shape) + (self.width,), dtype=self.fq.dtype, device=self.device)
@@ -145,3 +153,13 @@ class PointOps:
     def scalars_to_limbs(self, scalars) -> torch.Tensor:
         """Plain ints -> (N, Ls) non-Montgomery limbs for MSM digit extraction."""
         return self.fr.from_ints(list(scalars), mont=False)
+
+
+def point_ops(spec: CurveSpec, device="cuda") -> PointOps:
+    """The process-wide :class:`PointOps` of ``spec`` on ``device``."""
+    return _point_ops(spec, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _point_ops(spec: CurveSpec, device: torch.device) -> PointOps:
+    return PointOps(spec, device)

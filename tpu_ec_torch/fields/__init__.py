@@ -1,7 +1,7 @@
 """Prime fields and Fq2: specs, Montgomery arithmetic, host-side table arithmetic."""
 
-from .fp import FieldOps
-from .fp2 import Fp2Ops
+from .fp import FieldOps, field_ops
+from .fp2 import Fp2Ops, fp2_ops
 from .params import (
     ALL_FIELDS,
     BLS12_381_FQ,
@@ -26,6 +26,8 @@ __all__ = [
     "FieldOps",
     "Fp2Ops",
     "FieldSpec",
+    "field_ops",
+    "fp2_ops",
     "int_to_limbs",
     "limbs_to_int",
 ]

@@ -14,6 +14,8 @@ field-ops object, so ``fields/fp2.py``'s Fp2 uses it too.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -195,3 +197,14 @@ class FieldOps:
         arr = a.detach().to("cpu", torch.int64).reshape(-1, self.L).numpy()
         out = [limbs_to_int(r) for r in arr]
         return [self.spec.from_mont(v) for v in out] if mont else out
+
+
+def field_ops(spec: FieldSpec, device="cuda") -> FieldOps:
+    """The process-wide :class:`FieldOps` of ``spec`` on ``device`` (one per
+    field and device, as tpu_ec's ``field_ops`` keeps one per field)."""
+    return _field_ops(spec, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _field_ops(spec: FieldSpec, device: torch.device) -> FieldOps:
+    return FieldOps(spec, device)

@@ -14,9 +14,12 @@ canonical, so any exact evaluation of a product gives tpu_ec's bits.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .fp import FieldOps, batch_inverse
+from .limbs import resolve_device
 from .params import FieldSpec
 
 
@@ -119,3 +122,13 @@ class Fp2Ops:
         """(..., 2L) tensor -> list of (c0, c1) int pairs."""
         a = a.reshape(-1, self.width)
         return list(zip(self.fp.to_ints(a[:, : self.L], mont), self.fp.to_ints(a[:, self.L :], mont)))
+
+
+def fp2_ops(base: FieldSpec, device="cuda") -> Fp2Ops:
+    """The process-wide :class:`Fp2Ops` over ``base`` on ``device``."""
+    return _fp2_ops(base, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _fp2_ops(base: FieldSpec, device: torch.device) -> Fp2Ops:
+    return Fp2Ops(base, device)

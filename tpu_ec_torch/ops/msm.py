@@ -5,7 +5,8 @@ PyTorch counterpart of ``tpu_ec/ops/msm.py``: window digits
 (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
 engine (``ops/msm_pair.py``, the commit pipeline's), the co-Z engine
 (``ops/msm_coz.py``), the scan engine (``ops/msm_scan.py``, the one G2
-runs on, as in tpu_ec: the other two are G1-only) or the bucket lattice
+runs on, as in tpu_ec: the other two are G1-only), the sorted engine
+(``ops/msm_sorted.py``, run-halving rounds; G1 and G2) or the bucket lattice
 below (``msm_lattice``, the one engine that takes unsigned digits, G1 and
 G2), with oversized inputs split into chunks whose partial sums are added
 on the device, and ``MultiexpKernel.multiple_multiexp``, the batch of
@@ -25,6 +26,7 @@ from ..curves.point import PointOps
 from ..errors import Aborted
 from ..fields.limbs import resolve_device
 from ..kernels.point import horner
+from ..utils import timer
 
 SCALAR_BITS = 256  # Fr limb width for both supported curves (16 x 16-bit)
 
@@ -229,11 +231,6 @@ def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
     return 1 << max(0, c.bit_length() - 1)
 
 
-# engines of tpu_ec's multiexp that the port has not ported yet, and where
-# ROADMAP.md queues them
-_NOT_PORTED = {"sorted": "item 9"}
-
-
 def _auto(spec: CurveSpec, signed: bool = True) -> str:
     """The engine "auto" picks, as tpu_ec's does on an accelerator
     (tpu_ec/ops/msm.py:393-405, 515-522): the lattice for unsigned digits,
@@ -269,26 +266,26 @@ class MultiexpKernel:
         ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
         pair-halving engine, which "auto" picks on G1), "coz" (the co-Z
         scaled-affine engine), "scan" (the masked segmented-scan engine,
-        which "auto" picks on G2), all three on signed digits only, or
+        which "auto" picks on G2), "sorted" (the run-halving engine), all
+        four on signed digits only, or
         "lattice" (the bucket lattice, signed or unsigned digits, which
         "auto" picks for ``signed=False``; ``num_groups`` G, else
         ``default_num_groups``; it runs whole, whatever ``chunk_size``, and
         takes ``window_size`` or ``default_window_size``, as tpu_ec's
         does).  The other engines take ``window_size``, else
         ``config.msm_window``, else the card's table (``tuned_window``),
-        else the engine's model."""
+        else the engine's model.  With config ``timer`` on, the input
+        marshalling and the engine's call record as the phases
+        "msm/prepare" and "msm/dispatch" (``utils/timer.py``)."""
         from .autotune import tuned_window
         from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
         from .msm_scan import default_window_size_scan, msm_scan
+        from .msm_sorted import default_window_size_sorted, msm_sorted
 
         self._check_abort()
         if method == "auto":
             method = _auto(self.spec, signed)
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"MSM engine {method!r} is not ported yet (ROADMAP.md queue 1, {_NOT_PORTED[method]})"
-            )
         n = bases[0].shape[0]
         if method == "lattice":
             w = window_size or default_window_size(n)
@@ -298,11 +295,14 @@ class MultiexpKernel:
             get_logger("tpu_ec_torch.msm").info(
                 "MSM n=%d curve=%s engine=lattice window=%d groups=%d signed=%s", n, self.spec.name, w, G, signed
             )
-            points, s, _ = prepare_inputs(bases, scalars, G)
-            return msm_lattice(self.ops, points, s, window_size=w, signed=signed)
+            with timer.phase("msm/prepare"):
+                points, s, _ = prepare_inputs(bases, scalars, G)
+            with timer.phase("msm/dispatch"):
+                return msm_lattice(self.ops, points, s, window_size=w, signed=signed)
         engines = {"pair": (msm_pair, default_window_size_pair),
                    "coz": (msm_coz, default_window_size_coz),
-                   "scan": (msm_scan, default_window_size_scan)}
+                   "scan": (msm_scan, default_window_size_scan),
+                   "sorted": (msm_sorted, default_window_size_sorted)}
         if method not in engines:
             raise ValueError(f"unknown MSM method {method!r}")
         if not signed:
@@ -314,8 +314,10 @@ class MultiexpKernel:
         get_logger("tpu_ec_torch.msm").info(
             "MSM n=%d curve=%s engine=%s window=%d", n, self.spec.name, method, w
         )
-        s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1)
-        return engine(self.ops, bases, s, window_size=w)
+        with timer.phase("msm/prepare"):
+            s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1)
+        with timer.phase("msm/dispatch"):
+            return engine(self.ops, bases, s, window_size=w)
 
     def _multiexp_chunked(self, bases, scalars, window_size, method):
         """Split an oversized MSM into chunk_size pieces and add the partial

@@ -50,12 +50,24 @@ def _fused_add(ops: PointOps, a, b, L: int, *, keep=None):
     return out
 
 
-def sorted_rows(ops: PointOps, points, digits_t: torch.Tensor):
-    """The segmented scan's input: signed digits (..., W, n) and affine
-    points (x, y) of (..., n, L) -> (key, data): the |digit|s sorted along
-    n, (B W, n), and the fused (B W, n, 3L) Jacobian rows in that order, a
-    negative digit's point negated (B: the leading axes' size, each chunk's
-    digits paired with its own points; L = ``ops.width``)."""
+def scalar_mul_small(ops: PointOps, P, k: int, nbits: int):
+    """[k] P for a host scalar 0 <= k < 2^nbits over a Jacobian batch:
+    tpu_ec's MSB-first double-and-add over nbits from the identity, in one
+    launch of K3's chain entry (``PointOps.scalar_mul``: its leading zero
+    bits double the all-zero identity, which stays all zero, so the bits
+    are tpu_ec's)."""
+    if not 0 <= k < 1 << nbits:
+        raise ValueError(f"scalar_mul_small: k = {k} is not below 2^{nbits}")
+    return ops.scalar_mul(P, ops.fr.constant(k, mont=False))
+
+
+def sorted_affine_rows(ops: PointOps, points, digits_t: torch.Tensor):
+    """Signed digits (..., W, n) and affine points (x, y) of (..., n, L) ->
+    (key, rows): the |digit|s sorted stably along n, (B W, n), and the fused
+    (B W, n, 2L) affine rows in that order, a negative digit's point
+    negated (B: the leading axes' size, each chunk's digits paired with its
+    own points; L = ``ops.width``).  The sorted engine starts from these
+    rows; the segmented scan lifts them (:func:`sorted_rows`)."""
     L = ops.width
     lead = digits_t.shape[:-2]
     W, n = digits_t.shape[-2:]
@@ -70,9 +82,15 @@ def sorted_rows(ops: PointOps, points, digits_t: torch.Tensor):
     base = (torch.arange(B, device=dig.device) * n).view(B, 1, 1)
     idx = perm + base + B * n * torch.gather(dig < 0, 2, perm)
     rows = table.index_select(0, idx.reshape(-1)).reshape(B * W, n, 2 * L)
-    del table, idx, perm
-    data = torch.cat(ops.to_jacobian((rows[..., :L], rows[..., L:])), dim=-1)  # z = 0 for (0, 0)
-    return key.reshape(B * W, n), data
+    return key.reshape(B * W, n), rows
+
+
+def sorted_rows(ops: PointOps, points, digits_t: torch.Tensor):
+    """The segmented scan's input: :func:`sorted_affine_rows` with the rows
+    lifted to fused (B W, n, 3L) Jacobian rows ((0, 0) gets z = 0)."""
+    L = ops.width
+    key, rows = sorted_affine_rows(ops, points, digits_t)
+    return key, torch.cat(ops.to_jacobian((rows[..., :L], rows[..., L:])), dim=-1)
 
 
 def scan_round(data: torch.Tensor, key: torch.Tensor, h: int):
