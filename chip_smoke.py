@@ -123,15 +123,23 @@ Phases, each failing the run on any error:
    (37, 2^26) digits into canonical rows, with its bound, ms / bound, the
    plain version's time and its registers and spills, and at a ragged n
    into planes and rows; K2's int32 level-0 row again;
-4i. the bucket lattice (``ops/msm.py msm_lattice``) on BLS12-381: the
-   unsigned ``multiexp(signed=False)`` ("auto" = the lattice) and the signed
+4i. the bucket lattice (``ops/msm.py msm_lattice``) on BLS12-381: first
+   K3's lattice entry (one tile a (group, window) lane: its buckets and
+   running sum in one launch) against its plain version, bit for bit, on
+   small lattices (BN254 and BLS12-381 G1 at 2^10, w = 4, G = 16; BLS12-381
+   G2 at 2^8, w = 2, G = 8; unsigned and signed; an identity base, a zero
+   scalar, a point and scalar on two steps in a row); then the unsigned
+   ``multiexp(signed=False)`` ("auto" = the lattice) and the signed
    ``method="lattice"`` on G1 at 2^16 (phase 4's first points), with
    ``multiexp_1bit`` on the same, and an unsigned G2 MSM at 2^12, each
    against the native Pippenger, with ms (mean of 3), the window, groups
-   and steps, K3 launches against ``lattice_steps`` and peak memory; for
-   the unsigned G1 MSM the bound of its K3 work (the products of its
-   launches at ``mont_imads`` over the IMAD rate, beside the bytes) and its
-   device time (torch.profiler); the window the card's table
+   and steps, K3 launches against ``lattice_steps`` (one lattice entry,
+   log2 G adds, one Horner) and peak memory; for the two unsigned "auto"
+   cases the lattice entry on the path's own operands against its plain
+   version, with its time and bound (the busiest lane's product levels in
+   series at one product's latency, its products at the IMAD rate, its
+   bytes); for the unsigned G1 MSM its device time by kernel
+   (torch.profiler); the window the card's table
    (``ops/tuned_windows.json``) gives the commit, beside phase 4's commit
    ms (phases 4, 4c, 4e and 4g take their windows as the engines do: the
    table, else the model);
@@ -312,6 +320,7 @@ KERNEL_LABELS = (
     ("double_to", "K3 double_to (device function of the adds)"),
     ("double2_to", "K3 double_to (device function of the adds)"),
     ("scalar_mul_kernel", "K3 scalar_mul chain"), ("ec_fft_stage_kernel", "K3 ec_fft_stage"),
+    ("lattice_kernel", "K3 lattice"),
     ("ntt_leaf_kernel", ("K4 ntt_leaf", "K4 ntt_leaf+level")), ("pease_rows_kernel", "K5 pease_rows"),
     ("pease_stage_kernel", "K5 pease_stage (rows too long for one block)"),
     ("affine_kernel", ("K7 affine_denom", "K7 affine_apply", "K6 coz_apply")),
@@ -474,11 +483,13 @@ class Kernels:
         "point_horner_batch": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "point_scalar_mul": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "ec_fft_stage": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_lattice": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         # K3's Fq2 instances (G2; tpu_ec runs G2 on jnp, through no Pallas kernel)
         "point_fp2": ("csrc/point.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "point_horner_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "point_scalar_mul_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "ec_fft_stage_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
+        "point_lattice_fp2": ("csrc/chain.cuh", "tpu_ec/ops/pallas/point.py:244"),
         "ntt_leaf": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "ntt_leaf_level": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt_fused.py:65"),
         "pease_stage": ("csrc/ntt.cu", "tpu_ec/ops/pallas/ntt.py:39"),
@@ -1188,24 +1199,52 @@ def phase_ntt_large(dev, report, check, card: str) -> None:
     print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, imad_rate: float) -> None:
+def lattice_work(digits, nbuckets: int, ext: int) -> tuple[int, int]:
+    """(product levels of the busiest lane, Fq products of all lanes) of K3's
+    lattice entry on this run's (m, lanes) digits (the bases hold no
+    identity): a lane's mixed adds of a nonzero digit (5 levels, 11 products
+    on G1, 29 on G2), less each slot's first, a copy into an empty bucket;
+    its reduction's adds with both operands nonzero (5 levels, 16 or 43):
+    running + bucket k below the top occupied slot where bucket k is
+    occupied, acc + running at every slot below the top one."""
+    import numpy as np
+
+    products = FQ_PRODUCTS if ext == 1 else FP2_PRODUCTS
+    d = np.abs(digits.cpu().numpy().astype(np.int64))  # (m, lanes)
+    nz = (d != 0).sum(0)
+    occupied = np.zeros((nbuckets, d.shape[1]), dtype=bool)
+    occupied[d, np.arange(d.shape[1])[None, :]] = True
+    occupied[0] = False
+    slots = occupied.sum(0)
+    top = np.where(slots > 0, nbuckets - 1 - np.argmax(occupied[::-1], axis=0), 0)
+    madds = nz - slots
+    adds = np.maximum(slots - 1, 0) + np.maximum(top - 1, 0)
+    return int((5 * (madds + adds)).max()), int(products["add_mixed"] * madds.sum() + products["add"] * adds.sum())
+
+
+def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, report, lat: dict) -> None:
     """Phase 4i: the bucket lattice on BLS12-381 at full width, each output
     against the native Pippenger: ``multiexp(signed=False)`` ("auto" = the
     lattice) and ``method="lattice"`` signed on G1 at 2^16 (phase 4's first
     points), ``multiexp_1bit`` on the same, an unsigned G2 lattice at 2^12;
-    ms, K3 launches against ``lattice_steps``, peak memory; for the G1
-    unsigned case its K3 work's bound and its device time (torch.profiler);
-    then the window the table gives the commit."""
+    ms, K3 launches against ``lattice_steps`` (one lattice entry each), peak
+    memory; K3's lattice entry against its plain version on the two
+    unsigned cases' own operands, timed and bounded (the busiest lane's
+    product levels in series, the products at the IMAD rate, the bytes), and
+    on small lattices at 8 and 12 words and on Fq2, both signs; for the G1
+    unsigned case the device time by kernel (torch.profiler); then the
+    window the table gives the commit."""
     import numpy as np
     import torch
 
     from tpu_ec_torch import kernels
-    from tpu_ec_torch.curves.params import BLS12_381_G1, BLS12_381_G2
-    from tpu_ec_torch.fields.params import BLS12_381_FQ, BLS12_381_FR
+    from tpu_ec_torch.curves.params import BLS12_381_G1, BLS12_381_G2, BN254_G1
+    from tpu_ec_torch.fields.params import BLS12_381_FR
+    from tpu_ec_torch.kernels.point import lattice_lanes, lattice_lanes_plain
     from tpu_ec_torch.native import native_curve
     from tpu_ec_torch.ops.autotune import tuned_window
     from tpu_ec_torch.ops.msm import (SCALAR_BITS, MultiexpKernel, default_num_groups, default_window_size,
-                                      lattice_steps, make_digits, multiexp_1bit)
+                                      lattice_steps, make_digits, multiexp_1bit, prepare_inputs)
     from tpu_ec_torch.ops.msm_pair import default_window_size_pair
 
     t_phase = time.perf_counter()
@@ -1216,6 +1255,64 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, i
     m2 = 1 << min(12, log_n)
     g2 = MultiexpKernel(BLS12_381_G2, dev)
     aff2 = random_points(ncg2, rng, m2)[1]
+    imad_rate = report.imad_rate
+
+    def operands(bases, scal, w, G, signed):
+        """The lattice entry's operands as ``msm_lattice`` builds them."""
+        (x, y), s, m = prepare_inputs(bases, scal, G)
+        W = -(-SCALAR_BITS // w)
+        digits = make_digits(s.reshape(m * G, -1), w, W, signed).reshape(m, G * W)
+        return x, y, digits, (1 << (w - 1) if signed else (1 << w) - 1) + 1
+
+    def hold(name, label, spec, x, y, digits, nb, signed, timed):
+        """The entry against its plain version on the same operands; with
+        ``timed``, its row: ms, plain ms, the bound."""
+        base, ext = spec.base, spec.ext
+        got = lattice_lanes(base, x, y, digits, nb, signed, ext)
+        want, p_ms = cuda_ms_once(lambda: lattice_lanes_plain(base, x, y, digits, nb, signed, ext))
+        bad, err = mismatch(tuple(c.reshape(-1, c.shape[-1]) for c in got),
+                            tuple(c.reshape(-1, c.shape[-1]) for c in want))
+        m, lanes = digits.shape
+        if not timed:
+            report.err(name, err)
+            print(f"K3 lattice {label} (m {m}, {lanes} lanes, nbuckets {nb}): mismatches {bad}, plain {p_ms:.1f} ms",
+                  flush=True)
+        else:
+            k_ms = cuda_ms(lambda: lattice_lanes(base, x, y, digits, nb, signed, ext))
+            levels, prods = lattice_work(digits, nb, ext)
+            nw = base.n_limbs // 2
+            L = x.shape[-1]
+            nbytes = 4 * (2 * x.shape[0] * x.shape[1] * L + m * lanes + 3 * lanes * L)
+            report.measured(name, ms=k_ms, plain_ms=p_ms, err=err, nbytes=nbytes, imads=prods * mont_imads(nw),
+                            serial_ms=levels * lat[nw])
+            r = report.rows[name]
+            print(f"K3 lattice {label} (m {m}, {lanes} lanes, nbuckets {nb}): mismatches {bad}, kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: the busiest lane's {levels} "
+                  f"product levels x {lat[nw] * 1e3:.4f} us = {levels * lat[nw]:.4f} ms; {prods} Fq products x "
+                  f"{mont_imads(nw)} IMADs = {prods * mont_imads(nw) / imad_rate * 1e3:.4f} ms; bytes "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), ms / bound {k_ms / r['bound_ms']:.2f} | {card}",
+                  flush=True)
+        if bad:
+            raise SystemExit(f"K3 lattice {label}: the kernel disagrees with its plain version on {bad} lanes")
+
+    # the entry on small lattices: 8 and 12 words, Fq2, both signs (an
+    # identity base, a zero scalar, a point and scalar on two steps in a row)
+    for spec, n, w, G in ((BN254_G1, 1 << 10, 4, 16), (BLS12_381_G1, 1 << 10, 4, 16), (BLS12_381_G2, 1 << 8, 2, 8)):
+        ncs = native_curve(spec)
+        aff = random_points(ncs, rng, n)[1]
+        aff[0] = 0
+        aff[2 + G] = aff[2]
+        s_np = random_field(rng, BLS12_381_FR, n)  # rows 0-2: 0, 1, r - 1
+        s_np[2 + G] = s_np[2]
+        s_np[1] = 0
+        bases = coords_from_u64(ncs, aff, 2, dev)
+        scal = torch.as_tensor(s_np).to(dev, torch.int32)
+        for signed in (False, True):
+            x, y, digits, nb = operands(bases, scal, w, G, signed)
+            hold("point_lattice" if spec.ext == 1 else "point_lattice_fp2",
+                 f"{spec.name} n {n} w {w} G {G} {'signed' if signed else 'unsigned'}", spec, x, y, digits, nb,
+                 signed, False)
+
     cases = (
         ("G1 multiexp(signed=False) ('auto' = lattice)", g1, nc, bases_aff[:m1], None, False,
          lambda b, s: g1.multiexp(b, s, signed=False)),
@@ -1226,35 +1323,6 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, i
         ("G2 multiexp(signed=False) ('auto' = lattice)", g2, ncg2, aff2, None, False,
          lambda b, s: g2.multiexp(b, s, signed=False)),
     )
-    def lattice_bound(label, n, w, G, steps, scal, fn):
-        """The bound of the lattice's K3 work on this run's digits: the
-        add_mixed rows of a nonzero digit (11 products each), every row of
-        the reduction's and the group tree's adds (16), the Horner's
-        products (``horner_work`` on a window sum a window); at
-        ``mont_imads(12)`` over the IMAD rate, beside the bytes K3 reads
-        and writes; and the device time of one call (torch.profiler)."""
-        L = BLS12_381_FQ.n_limbs
-        W = -(-SCALAR_BITS // w)
-        m = steps["add_mixed"]
-        digits = make_digits(torch.cat([scal, scal.new_zeros((n, 1))], dim=1), w, W, False)
-        adding = int((digits != 0).sum())
-        nb = (1 << w) - 1
-        tree = sum(G >> (k + 1) for k in range(G.bit_length() - 1))
-        adds = 2 * nb * G * W + tree * W
-        horner = W * (7 * w + 16)
-        prods = 11 * adding + 16 * adds + horner
-        t_ops = prods * mont_imads(L // 2) / imad_rate * 1e3
-        nbytes = 4 * L * (m * G * W * 8 + adds * 9)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        split, busy, _ = traced(fn, label)
-        k3 = sum(v[0] for k, v in split.items() if k.startswith("K3"))
-        bound = max(t_ops, t_bytes)
-        print(f"{label} 2^{n.bit_length() - 1} bound: {adding} add_mixed rows of a nonzero digit, {adds} add rows, "
-              f"{horner} Horner products = {prods} Fq products x {mont_imads(L // 2)} IMADs: {t_ops:.4f} ms; "
-              f"bytes {t_bytes:.4f} ms; bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}); "
-              f"device busy {busy:.4f} ms, K3 {k3:.4f} ms in {sum(v[1] for k, v in split.items() if k.startswith('K3'))}"
-              f" launches, K3 / bound {k3 / bound:.2f}, busy / bound {busy / bound:.2f} | {card}", flush=True)
-
     for label, kern, ncv, aff, w, signed, run in cases:
         n = aff.shape[0]
         ext = kern.spec.ext
@@ -1263,8 +1331,10 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, i
         scal = torch.as_tensor(s_np).to(dev, torch.int32)
         w = w or default_window_size(n)
         G = default_num_groups(n, w)
-        steps = lattice_steps(-(-n // G), G, w, signed)
-        owned = ("point", "point_horner") if ext == 1 else ("point_fp2", "point_horner_fp2")
+        m = -(-n // G)
+        steps = lattice_steps(G)
+        owned = (("point", "point_horner", "point_lattice") if ext == 1 else
+                 ("point_fp2", "point_horner_fp2", "point_lattice_fp2"))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1273,18 +1343,29 @@ def phase_lattice(dev, card: str, nc, bases_aff, commit_ms: float, log_n: int, i
         peak = torch.cuda.max_memory_allocated() - base
         want_k3 = sum(steps.values())
         other = "point" if ext == 2 else "point_fp2"
-        if counts[owned[0]] != want_k3 or counts[owned[1]] != 1 or counts[other]:
-            raise SystemExit(f"{label}: K3 launches {counts}; the lattice predicts {want_k3} ({steps}), one Horner")
+        if (counts[owned[0]] != want_k3 or counts[owned[1]] != steps["horner"]
+                or counts[owned[2]] != steps["lattice"] or counts[other]):
+            raise SystemExit(f"{label}: K3 launches {counts}; the lattice predicts {want_k3} ({steps})")
+        if not signed and w > 1:  # the "auto" paths: the lattice entry's launches on the main path
+            report.launches[owned[2]] = counts[owned[2]]
         want = ncv.to_affine(ncv.msm(aff, ncv.fr.from_halflimbs(s_np.astype(np.uint64)))[None, :])
         if not np.array_equal(native_affine(ncv, got), want):
             raise SystemExit(f"{label}: the result disagrees with the native Pippenger")
         ms, runs = host_ms(lambda: run(bases, scal))
         print(f"{label} 2^{n.bit_length() - 1}: == native Pippenger; {ms:.2f} ms mean of 3 "
-              f"({', '.join(f'{t:.2f}' for t in runs)}); w = {w}, G = {G}, {steps['add_mixed']} steps; K3 launches "
+              f"({', '.join(f'{t:.2f}' for t in runs)}); w = {w}, G = {G}, {m} steps; K3 launches "
               f"{counts[owned[0]]} == the plan's {want_k3} ({steps}); peak {peak / 2**30:.3f} GiB above the inputs "
               f"| {card}", flush=True)
+        if not signed and w > 1:
+            x, y, digits, nb = operands(bases, scal, w, G, signed)
+            hold(owned[2], f"{kern.spec.name} 2^{n.bit_length() - 1} w {w} G {G} unsigned (the path's operands)",
+                 kern.spec, x, y, digits, nb, signed, True)
+            del x, y, digits
         if ext == 1 and not signed and w > 1:
-            lattice_bound(label, n, w, G, steps, scal, lambda: run(bases, scal))
+            split, busy, _ = traced(lambda: run(bases, scal), label)
+            k3 = {k: v for k, v in split.items() if k.startswith("K3")}
+            print(f"{label} 2^{n.bit_length() - 1} device time: busy {busy:.4f} ms; K3 "
+                  f"{ {k: [round(v[0], 4), v[1]] for k, v in k3.items()} } | {card}", flush=True)
         del bases, scal, got
         torch.cuda.empty_cache()
     n = 1 << log_n
@@ -2401,7 +2482,7 @@ def main() -> int:
 
     # 4i. the bucket lattice: unsigned and signed G1 MSMs, multiexp_1bit, an
     # unsigned G2 MSM, and the window the table gives the commit
-    phase_lattice(dev, card, nc, bases_aff, sum(commit_ms) / 3, args.log_n, imad_rate)
+    phase_lattice(dev, card, nc, bases_aff, sum(commit_ms) / 3, args.log_n, report, lat)
 
     # 4j. the multi-device layer at world size 1 under NCCL: the dry run, the
     # distributed NTT at 2^26, MSM at 2^n (both accumulations) and EC-FFT

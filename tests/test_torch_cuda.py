@@ -1065,5 +1065,45 @@ def test_lattice_msm_matches_native(cuda, curve):
         counts = kernels.launch_counters()
         w = w or default_window_size(n)
         G = default_num_groups(n, w)
-        assert (counts[names[0]], counts[names[1]]) == (sum(lattice_steps(-(-n // G), G, w, signed).values()), 1)
+        assert (counts[names[0]], counts[names[1]]) == (sum(lattice_steps(G).values()), 1)
+        assert counts["point_lattice" if spec.ext == 1 else "point_lattice_fp2"] == 1
         assert np.array_equal(nc.to_affine(_to_native(nc, got)), want), (w, signed)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("curve,n,w,G", [("BN254_G1", 1000, 4, 16), ("BLS12_381_G1", 1000, 4, 16),
+                                         ("BLS12_381_G2", 244, 2, 8)])
+def test_lattice_kernel_matches_plain(cuda, curve, n, w, G, signed):
+    """K3's lattice entry (``lattice_lanes``, one launch) == its plain
+    version bit for bit, at 8 and 12 words and on Fq2: an odd m (n not a
+    multiple of G: identity padding rows), an identity base with a nonzero
+    scalar, a zero scalar, and one point with its scalar on two consecutive
+    steps of a group (the same slots in a row; the doubling where a slot was
+    empty)."""
+    from tpu_ec_torch import curves, kernels
+    from tpu_ec_torch.kernels.point import lattice_lanes, lattice_lanes_plain
+    from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.msm import SCALAR_BITS, make_digits, prepare_inputs
+
+    spec = getattr(curves, curve)
+    nc = native_curve(spec)
+    _, aff = _g2_native_points(nc, n, 50)
+    aff[0] = 0  # an identity base
+    aff[2 + G] = aff[2]
+    rng = np.random.default_rng(51)
+    s = rng.integers(0, 1 << 16, (n, 16), dtype=np.int64)
+    s[:, -1] &= 0x0FFF  # below r
+    s[1] = 0
+    s[2 + G] = s[2]
+    m = -(-n // G)
+    assert m % 2 == 1 and n % G
+    W = -(-SCALAR_BITS // w)
+    nbuckets = (1 << (w - 1) if signed else (1 << w) - 1) + 1
+    (x, y), sc, _ = prepare_inputs(_to_port(nc, aff, 2, cuda), torch.as_tensor(s).to(cuda, torch.int32), G)
+    digits = make_digits(sc.reshape(m * G, -1), w, W, signed).reshape(m, G * W)
+    kernels.reset_launch_counters()
+    got = lattice_lanes(spec.base, x, y, digits, nbuckets, signed, spec.ext)
+    assert kernels.launch_counters()["point_lattice" if spec.ext == 1 else "point_lattice_fp2"] == 1
+    want = lattice_lanes_plain(spec.base, x, y, digits, nbuckets, signed, spec.ext)
+    for g, wv in zip(got, want):
+        assert torch.equal(g, wv)

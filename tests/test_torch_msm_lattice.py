@@ -64,9 +64,9 @@ def _counting(calls: dict, name: str, fn):
 def test_lattice_matches_oracle_and_native(monkeypatch, curve, n, w, G, signed):
     """One MSM each, its K3 calls counted (on the card each is one K3
     launch) against ``lattice_steps``."""
-    calls = {"add_mixed": 0, "add": 0, "horner": 0}
-    for name in ("add", "add_mixed"):
-        monkeypatch.setattr(tmsm.PointOps, name, _counting(calls, name, getattr(tmsm.PointOps, name)))
+    calls = {"lattice": 0, "add": 0, "horner": 0}
+    monkeypatch.setattr(tmsm.PointOps, "add", _counting(calls, "add", tmsm.PointOps.add))
+    monkeypatch.setattr(tmsm, "lattice_lanes", _counting(calls, "lattice", tmsm.lattice_lanes))
     monkeypatch.setattr(tmsm, "horner", _counting(calls, "horner", tmsm.horner))
     spec = getattr(curves, curve.upper())
     pts, ks = _inputs(getattr(jcp, curve.upper()), n, seed=3 * n + w)
@@ -74,7 +74,7 @@ def test_lattice_matches_oracle_and_native(monkeypatch, curve, n, w, G, signed):
     ops = kern.ops
     out = kern.multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), window_size=w, num_groups=G,
                         signed=signed, method="lattice")
-    assert calls == tmsm.lattice_steps(-(-n // G), G, w, signed)
+    assert calls == tmsm.lattice_steps(G)
     assert out[0].shape == (1, ops.width)
     _check(curve, pts, ks, out, ops)
 

@@ -19,8 +19,8 @@ __global__ void mul_chain_kernel(const int32_t* a, const int32_t* b, int steps, 
 
 }  // namespace
 
-// The entries' arguments are chain.cuh's horner_entry, scalar_mul_entry and
-// stage_entry, coordinates of 2 * nw half-limbs.
+// The entries' arguments are chain.cuh's horner_entry, scalar_mul_entry,
+// stage_entry and lattice_entry, coordinates of 2 * nw half-limbs.
 extern "C" int tec_point_horner(int nw, const void* const* in, const long long* in_stride, int windows,
                                 long long chunks, int w, void* const* out, const uint32_t* fc, void* stream) {
   return horner_entry<1>(nw, in, in_stride, windows, chunks, w, out, fc, stream);
@@ -37,7 +37,14 @@ extern "C" int tec_ec_fft_stage(int nw, const void* const* in, long long in_stri
   return stage_entry<1>(nw, in, in_stride, out, tw, batches, log_n, stage, fc, stream);
 }
 
-// The lanes of a chain in chain.cuh's three chain kernels at nw words and
+extern "C" int tec_point_lattice(int nw, const void* x, long long x_stride, const void* y, long long y_stride,
+                                 const void* digits, int m, long long groups, int windows, int nbuckets, void* table,
+                                 void* const* sums, const uint32_t* fc, void* stream) {
+  return lattice_entry<1>(nw, x, x_stride, y, y_stride, digits, m, groups, windows, nbuckets, table, sums, fc,
+                          stream);
+}
+
+// The lanes of a chain in chain.cuh's chain kernels at nw words and
 // ext (1: Fq, G1; 2: Fq2, G2).
 extern "C" int tec_chain_tile(int nw, int ext) {
   if (nw != 8 && nw != 12) return 0;

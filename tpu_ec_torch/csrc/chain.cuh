@@ -1,6 +1,6 @@
 // K3's chain entries: the Horner window combine of the MSM, the scalar
-// multiplication [k] P and one EC-FFT stage, on the lane-tile field core
-// (field_tile.cuh).
+// multiplication [k] P, one EC-FFT stage and the bucket lattice's buckets
+// and running sums, on the lane-tile field core (field_tile.cuh).
 //
 // Replace tpu_ec/ops/pallas/point.py:_point_call_list (K3, with point.cu's
 // point_kernel for the batched point ops) where tpu_ec runs it in a chain:
@@ -40,12 +40,28 @@
 // non-inlined function that reads P again; in the Horner and the scalar
 // multiplication it is the chain's next doubling.
 //
+// The bucket lattice (lattice_kernel below) replaces the lattice's use of
+// tpu_ec/ops/pallas/point.py:_point_call_list, driven by
+// tpu_ec/ops/msm.py:_msm_lattice: m steps of gather, add_mixed and scatter
+// over the (group, window) lanes, then the running-sum reduction's 2
+// (nbuckets - 1) adds, each a launch of its own.  Each lane's work is one
+// chain: its nonzero digits' mixed adds into its buckets in step order, from
+// the identity, then the reduction over its buckets, so the kernel's bound
+// is the busiest lane's product levels in series, not the card's IMAD rate
+// (a G1 2^16 lattice has 5504 lanes).  One tile of lanes a (group, window)
+// lane runs the whole chain in one launch: the buckets stay in a device
+// table, each read and written back by the tile that owns it, and the
+// running sums stay in registers.  Lanes are window-fastest, so the tiles of
+// a warp share each step's point load.  A tile reads 32 steps' digits at
+// once and walks only the nonzero ones, so tiles that skip a step do not
+// hold their warp (multiexp_1bit: half the digits are 0).
+//
 // G1 and G2.  The formulas take the tile field as a type: TileProducts (Fq)
 // for G1, TileProducts2 (Fq2: 3 Fq products an Fq2 product, so 16 lanes
 // run a level of up to 4 in one round) for G2.  The G1 instances are
-// chain.cu's; the G2 ones are g2_horner.cu's, g2_scalar_mul.cu's and
-// g2_ec_fft_stage.cu's, one compile each, so that the widest instances
-// build side by side.
+// chain.cu's; the G2 ones are g2_horner.cu's, g2_scalar_mul.cu's,
+// g2_ec_fft_stage.cu's and g2_lattice.cu's, one compile each, so that the
+// widest instances build side by side.
 #pragma once
 
 #include <type_traits>
@@ -204,8 +220,52 @@ __device__ __forceinline__ bool add_core(const Fd& f, const SP& P, const SQ& Q, 
   return true;
 }
 
-// The P == Q rows of the stage's adds: rare, so kept out of the kernel's
-// code.  Row i of coordinates k.. is read again; the result goes to row o.
+// madd-2007-bl (ec.cl:45-82), point.cuh's add_mixed_core in levels of
+// independent products (5 levels for 11 products), with its select tree:
+// P identity -> A lifted (z = 1, or 0 where A is (0, 0)), else A identity
+// -> P, else P == A -> returns false and leaves the doubling of P to the
+// caller.  A = (ax, ay) affine; Z3 = 2 Z1 H, as point.cuh forms it.  P's
+// coordinates are read before the first store, so out may be P's own row.
+template <class Fd, class SP, class Out>
+__device__ __forceinline__ bool add_mixed_core(const Fd& f, const SP& P, const typename Fd::E& ax,
+                                               const typename Fd::E& ay, const Out& out) {
+  using E = typename Fd::E;
+  const E Z1 = P.Z();
+  const bool i2 = f.is_zero(ax) && f.is_zero(ay);
+  if (f.is_zero(Z1)) {
+    out.X(ax); out.Y(ay); out.Z(i2 ? f.zero() : f.one());
+    return true;
+  }
+  if (i2) {
+    out.X(P.X()); out.Y(P.Y()); out.Z(Z1);
+    return true;
+  }
+  E l1[1];  // Z1Z1
+  f.mul_many(l1, {Z1}, {Z1});
+  E l2[2];  // U2 = x2 Z1Z1, Z1^3
+  f.mul_many(l2, {ax, Z1}, {l1[0], l1[0]});
+  const E X1 = P.X();
+  const E H = f.canon(f.sub(l2[0], X1));
+  const E Y1 = P.Y();
+  E l3[3];  // S2 = y2 Z1^3, Z1 H, H^2
+  f.mul_many(l3, {ay, Z1, H}, {l2[1], H, H});
+  const E rr = f.canon(f.dbl(f.sub(l3[0], Y1)));
+  if (f.is_zero(H) && f.is_zero(rr)) return false;
+  out.Z(f.canon(f.dbl(l3[1])));
+  const E I = f.dbl(f.dbl(l3[2]));
+  E l4[3];  // rr^2, J = H I, V = X1 I
+  f.mul_many(l4, {rr, H, X1}, {rr, I, I});
+  const E X3 = f.canon(f.sub(f.sub(l4[0], l4[1]), f.dbl(l4[2])));
+  E l5[2];  // rr (V - X3), Y1 J
+  f.mul_many(l5, {rr, Y1}, {f.sub(l4[2], X3), l4[1]});
+  out.Y(f.canon(f.sub(l5[0], f.dbl(l5[1]))));
+  out.X(X3);
+  return true;
+}
+
+// The P == Q rows of the stage's adds and of the lattice's mixed adds:
+// rare, so kept out of the kernels' code.  Row i of coordinates k.. is read
+// again; the result goes to row o.
 template <class Fd>
 __device__ __noinline__ void double_to(const ChainArgs* a, int k, long long i, long long o, const FieldConsts* fc) {
   const Fd f(*fc);
@@ -350,6 +410,129 @@ __global__ void __launch_bounds__(kChainThreads)
   out.X(acc.x); out.Y(acc.y); out.Z(acc.z);
 }
 
+// The bucket lattice's operands.  b: the bucket table, ((nbuckets - 1)
+// lanes) fused rows X | Y | Z (in[0..2] and out[0..2] the same three
+// columns, row stride 3 ext L), slot k >= 1 of lane l at row (k - 1) lanes
+// + l; x, y: the (m G) affine point rows of the steps, step t group g at
+// row t G + g; digits: (m, lanes) int32, lane l = g W + j (window j of
+// group g); sum: the (lanes) output rows, contiguous.
+struct LatticeArgs {
+  ChainArgs b;
+  const int32_t* x;
+  const int32_t* y;
+  long long x_stride, y_stride;
+  const int32_t* digits;
+  int32_t* sum[3];
+  long long sum_stride;
+  long long lanes;
+  int m, windows, nbuckets;
+};
+
+// A point operand of the reduction: bucket row `row`, read from device
+// memory at each use, or the running sum where acc takes it.
+template <class Fd>
+struct SlotOrRunning {
+  using E = typename Fd::E;
+  const ChainArgs& a;
+  const Fd& f;
+  long long row;
+  const RegPoint<Fd>& running;
+  bool reg;
+  __device__ __forceinline__ E at(int c, const E& r) const {
+    return reg ? r : f.load(a.in[c] + row * a.in_stride[c]);
+  }
+  __device__ __forceinline__ E X() const { return at(0, running.x); }
+  __device__ __forceinline__ E Y() const { return at(1, running.y); }
+  __device__ __forceinline__ E Z() const { return at(2, running.z); }
+};
+
+constexpr int kScan = 32;  // steps whose digits a tile reads at once
+
+// One tile a (group, window) lane (args.lanes of them): tpu_ec's
+// _msm_lattice for that lane.  For t = 0 .. m - 1 with digit d != 0, bucket
+// |d| = bucket |d| + (x, y) of step t's point of the lane's group, y negated
+// where d < 0 (PointOps.add_mixed, falling back to the bucket's doubling
+// where they are equal), each bucket read and stored back canonical by
+// its tile: the tile syncs between its lanes' reads and their stores, and
+// every lane later reads what it stored itself.  A zero digit is skipped
+// (tpu_ec adds into the dummy slot 0, which nothing reads).  Then the
+// running sum in registers, for k = nbuckets - 1 .. 1: running = running +
+// bucket k; acc = acc + running (PointOps.add, falling back to the doubling
+// of the left operand where they are equal), in tpu_ec's order; acc goes to
+// the lane's sum row.  Digits: each lane of the tile reads K steps of a run
+// of kScan, the tile ORs its nonzero bits into one mask and walks its set
+// bits, taking each digit from the lane that read it.
+template <class Fd>
+__global__ void __launch_bounds__(kChainThreads)
+    lattice_kernel(const __grid_constant__ LatticeArgs a, const __grid_constant__ FieldConsts fc) {
+  using E = typename Fd::E;
+  constexpr int T = Fd::kLanes, K = kScan / T;
+  static_assert(kScan % T == 0, "a run of steps is whole per lane");
+  const long long lane = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / T;
+  if (lane >= a.lanes) return;  // the whole tile
+  const Fd f(fc);
+  const int r = (int)f.tile.thread_rank();
+  const long long G = a.lanes / a.windows, g = lane / a.windows;
+#pragma unroll 1
+  for (int t0 = 0; t0 < a.m; t0 += kScan) {
+    int dig[K];
+    uint32_t mask = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int t = t0 + k * T + r;
+      dig[k] = t < a.m ? a.digits[(long long)t * a.lanes + lane] : 0;
+      mask |= (uint32_t)(dig[k] != 0) << (k * T + r);
+    }
+#pragma unroll
+    for (int s = 1; s < T; s <<= 1) mask |= f.tile.shfl_xor(mask, s);
+#pragma unroll 1
+    while (mask) {
+      const int b = __ffs(mask) - 1;
+      mask &= mask - 1;
+      int own = dig[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) own = b / T == k ? dig[k] : own;
+      const int d = f.tile.shfl(own, b % T);
+      const long long row = (long long)((d < 0 ? -d : d) - 1) * a.lanes + lane;
+      const long long pt = (long long)(t0 + b) * G + g;
+      const MemPoint<Fd> B{a.b, f, 0, row};
+      const RegPoint<Fd> P{B.X(), B.Y(), B.Z()};
+      const E ay = f.load(a.y + pt * a.y_stride);
+      f.tile.sync();  // every lane has read the bucket before any lane stores it
+      if (!add_mixed_core<Fd>(f, P, f.load(a.x + pt * a.x_stride), d < 0 ? f.neg(ay) : ay,
+                              MemOut<Fd>{a.b, f, row}))
+        double_to<Fd>(&a.b, 0, row, row, &fc);
+    }
+  }
+  RegPoint<Fd> running{f.zero(), f.zero(), f.zero()}, acc = running, t;
+  const RegOut<Fd> to{t};
+  bool same = false;  // the last add found P == Q: this step's result is the doubling of P
+  // step j = 2 (nbuckets - 1) - 1 .. 0: odd, running + bucket (j >> 1) + 1;
+  // even, acc + running
+#pragma unroll 1
+  for (int j = 2 * (a.nbuckets - 1) - 1; j >= 0;) {
+    const bool into_acc = (j & 1) == 0;
+    const RegPoint<Fd> P = into_acc ? acc : running;
+    if (same) {
+      dbl<Fd>(f, P.x, P.y, P.z, to);
+      same = false;
+    } else if (!add_core<Fd>(f, P, SlotOrRunning<Fd>{a.b, f, (long long)(j >> 1) * a.lanes + lane, running, into_acc},
+                             to)) {
+      same = true;
+      continue;
+    }
+    if (into_acc) {
+      acc = t;
+    } else {
+      running = t;
+    }
+    --j;
+  }
+  f.store(a.sum[0] + lane * a.sum_stride, acc.x);
+  f.store(a.sum[1] + lane * a.sum_stride, acc.y);
+  f.store(a.sum[2] + lane * a.sum_stride, acc.z);
+}
+
 ChainArgs make_args(const void* const* in, const long long* in_stride, int n_in, void* const* out,
                     long long out_stride, long long n) {
   ChainArgs a;
@@ -397,6 +580,15 @@ int launch_stage(const ChainArgs& a, const int32_t* tw, long long half, int stag
   int threads;
   geometry<Fd>(a.n, blocks, threads);
   ec_fft_stage_kernel<Fd><<<blocks, threads, 0, s>>>(a, tw, half, stage, c);
+  return (int)cudaGetLastError();
+}
+
+template <class Fd>
+int launch_lattice(const LatticeArgs& a, const FieldConsts& c, cudaStream_t s) {
+  unsigned blocks;
+  int threads;
+  geometry<Fd>(a.lanes, blocks, threads);
+  lattice_kernel<Fd><<<blocks, threads, 0, s>>>(a, c);
   return (int)cudaGetLastError();
 }
 
@@ -456,6 +648,43 @@ int stage_entry(int nw, const void* const* in, long long in_stride, void* const*
   cudaStream_t s = (cudaStream_t)stream;
   if (nw == 8) return launch_stage<Field<8, EXT>>(a, (const int32_t*)tw, half, stage, c, s);
   if (nw == 12) return launch_stage<Field<12, EXT>>(a, (const int32_t*)tw, half, stage, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bucket lattice's per-lane sums of one MSM: x, y = device pointers of
+// the (m groups) affine point rows (step-major) with row strides; digits =
+// the (m, groups windows) contiguous int32 window digits (lane g windows + j
+// for window j of group g), |d| < nbuckets; table = ((nbuckets - 1) groups
+// windows, 3 * 2 * EXT * nw) contiguous int32, all zero (the identity), the
+// buckets, left holding them; sums = 3 device pointers of (groups windows)
+// contiguous rows, sum_k k bucket_k of each lane.  One tile a lane.
+template <int EXT>
+int lattice_entry(int nw, const void* x, long long x_stride, const void* y, long long y_stride, const void* digits,
+                  int m, long long groups, int windows, int nbuckets, void* table, void* const* sums,
+                  const uint32_t* fc, void* stream) {
+  if (m < 0 || groups <= 0 || windows <= 0 || nbuckets < 2) return (int)cudaErrorInvalidValue;
+  const long long L = 2LL * EXT * nw;
+  int32_t* tb = (int32_t*)table;
+  const void* cols[3] = {tb, tb + L, tb + 2 * L};
+  const long long strides[3] = {3 * L, 3 * L, 3 * L};
+  void* outs[3] = {tb, tb + L, tb + 2 * L};
+  LatticeArgs a;
+  a.b = make_args(cols, strides, 3, outs, 3 * L, groups * windows);
+  a.x = (const int32_t*)x;
+  a.y = (const int32_t*)y;
+  a.x_stride = x_stride;
+  a.y_stride = y_stride;
+  a.digits = (const int32_t*)digits;
+  for (int k = 0; k < 3; ++k) a.sum[k] = (int32_t*)sums[k];
+  a.sum_stride = L;
+  a.lanes = groups * windows;
+  a.m = m;
+  a.windows = windows;
+  a.nbuckets = nbuckets;
+  const FieldConsts c = tec::field_consts_from_host(fc);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nw == 8) return launch_lattice<Field<8, EXT>>(a, c, s);
+  if (nw == 12) return launch_lattice<Field<12, EXT>>(a, c, s);
   return (int)cudaErrorInvalidValue;
 }
 

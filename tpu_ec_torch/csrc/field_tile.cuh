@@ -109,6 +109,9 @@ struct TileProducts {
 
   static __device__ __forceinline__ E zero() { return fe_zero<NW>(); }
 
+  // R mod p, the Montgomery one (an affine point's z).
+  __device__ __forceinline__ E one() const { return fe_const<NW>(fc.one); }
+
   // Every lane holds the same value, so the test agrees across the tile.
   static __device__ __forceinline__ bool is_zero(const E& a) { return fe_is_zero<NW>(a); }
 
@@ -181,6 +184,8 @@ struct TileProducts2 {
   __device__ __forceinline__ E canon(const E& a) const { return fe_canon<NW>(a, fc); }
   __device__ __forceinline__ E neg(const E& a) const { return sub_masked<NW>(zero(), a, fc.p); }
   static __device__ __forceinline__ E zero() { return fe_zero<NW>(); }
+  // this lane's component of the Fq2 one (R mod p, 0)
+  __device__ __forceinline__ E one() const { return hi ? zero() : fe_const<NW>(fc.one); }
 
   // The Fq2 value is zero: both halves' components, so the tile agrees.
   __device__ __forceinline__ bool is_zero(const E& a) const {

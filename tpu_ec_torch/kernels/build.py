@@ -33,8 +33,8 @@ from ..fields.params import FieldSpec
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # one nvcc process each, all started together (the longest compiles first)
 SOURCES = (
-    "g2_horner.cu", "g2_scalar_mul.cu", "g2_ec_fft_stage.cu", "g2_point.cu", "chain.cu", "point.cu", "mont.cu",
-    "inter.cu", "ntt.cu", "affine.cu",
+    "g2_horner.cu", "g2_scalar_mul.cu", "g2_ec_fft_stage.cu", "g2_lattice.cu", "g2_point.cu", "chain.cu", "point.cu",
+    "mont.cu", "inter.cu", "ntt.cu", "affine.cu",
 )
 HEADERS = ("field.cuh", "field_tile.cuh", "point_args.cuh", "point.cuh", "chain.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -142,6 +142,7 @@ def load() -> ctypes.CDLL:
                 ("tec_point_horner", [i32, vp, vp, i32, i64, i32, vp, vp, vp]),
                 ("tec_point_scalar_mul", [i32, vp, vp, vp, i64, vp, i64, vp, vp]),
                 ("tec_ec_fft_stage", [i32, vp, i64, vp, vp, i64, i32, i32, vp, vp]),
+                ("tec_point_lattice", [i32, vp, i64, vp, i64, vp, i32, i64, i32, i32, vp, vp, vp, vp]),
             ):
                 fn = getattr(lib, name + sfx)
                 fn.argtypes, fn.restype = args, i32

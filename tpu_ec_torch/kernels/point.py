@@ -6,10 +6,12 @@ launch each: the MSM's Horner window combine
 (``tpu_ec/ops/msm_pair.py::horner_combine``, and for a batch of MSMs
 ``tpu_ec/ops/msm_batch.py::horner_combine_batch``, one tile of lanes a
 chunk), the scalar multiplication chain of
-``tpu_ec/curves/point.py::PointOps.scalar_mul`` (one tile a point) and one
+``tpu_ec/curves/point.py::PointOps.scalar_mul`` (one tile a point), one
 stage of the EC-group FFT (``tpu_ec/ops/ec_fft.py::_ec_fft_impl``, one tile
-a butterfly).  The kernels are ``csrc/point.cuh`` for the batched ops and
-``csrc/chain.cuh`` for the three chains, where a tile of lanes runs each
+a butterfly) and the bucket lattice's accumulation and running-sum
+reduction (``tpu_ec/ops/msm.py::_msm_lattice``, one tile a (group, window)
+lane).  The kernels are ``csrc/point.cuh`` for the batched ops and
+``csrc/chain.cuh`` for the four chains, where a tile of lanes runs each
 chain and computes each level of a point op's independent products side by
 side (``csrc/field_tile.cuh``).  The plain version below evaluates the same
 formulas with the same select tree as ``tpu_ec/ops/pallas/point.py`` (it
@@ -40,14 +42,16 @@ LAUNCHES = Launches("point")  # every G1 K3 launch, those of the entries below t
 HORNER_LAUNCHES = Launches("point_horner")  # the Horner entry's launches
 CHAIN_LAUNCHES = Launches("point_scalar_mul")  # the scalar-multiplication chain's
 STAGE_LAUNCHES = Launches("ec_fft_stage")  # the EC-FFT stage entry's
+LATTICE_LAUNCHES = Launches("point_lattice")  # the bucket lattice entry's
 MUL_CHAIN_LAUNCHES = Launches("mul_chain")  # the chains' latency yardstick (on no path)
-# the Fq2 (G2) instances, the same four counts
+# the Fq2 (G2) instances, the same five counts
 LAUNCHES_FP2 = Launches("point_fp2")
 HORNER_LAUNCHES_FP2 = Launches("point_horner_fp2")
 CHAIN_LAUNCHES_FP2 = Launches("point_scalar_mul_fp2")
 STAGE_LAUNCHES_FP2 = Launches("ec_fft_stage_fp2")
-_COUNTS = {1: (LAUNCHES, HORNER_LAUNCHES, CHAIN_LAUNCHES, STAGE_LAUNCHES),
-           2: (LAUNCHES_FP2, HORNER_LAUNCHES_FP2, CHAIN_LAUNCHES_FP2, STAGE_LAUNCHES_FP2)}
+LATTICE_LAUNCHES_FP2 = Launches("point_lattice_fp2")
+_COUNTS = {1: (LAUNCHES, HORNER_LAUNCHES, CHAIN_LAUNCHES, STAGE_LAUNCHES, LATTICE_LAUNCHES),
+           2: (LAUNCHES_FP2, HORNER_LAUNCHES_FP2, CHAIN_LAUNCHES_FP2, STAGE_LAUNCHES_FP2, LATTICE_LAUNCHES_FP2)}
 
 SCALAR_LIMBS = 16  # plain Fr scalars of both curves: 256 bits, the chain's length
 
@@ -57,7 +61,8 @@ N_IN = {"add": (6,), "add_mixed": (5, 4), "double": (3,)}
 
 def _count(ext: int, entry: int = -1) -> None:
     """One launch of K3 at ``ext``: every launch counts once in the ext's
-    total, an entry's (0 Horner, 1 chain, 2 stage) also in its own."""
+    total, an entry's (0 Horner, 1 chain, 2 stage, 3 lattice) also in its
+    own."""
     counts = _COUNTS[ext]
     counts[0].count += 1
     if entry >= 0:
@@ -456,10 +461,98 @@ def point_scalar_mul(spec: FieldSpec, coords, k: torch.Tensor, ext: int = 1) -> 
     return tuple(o.reshape(shape) for o in outs)
 
 
+def _lattice_shape(x, y, digits, nbuckets: int) -> tuple[int, int, int]:
+    """(m, G, W) of a lattice's operands; raises where they do not fit."""
+    if x.dim() != 3 or y.shape != x.shape or x.device != y.device:
+        raise ValueError(f"lattice: x, y must be two (m, G, L) tensors on one device, got {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+    m, G = x.shape[:2]
+    if digits.dim() != 2 or digits.shape[0] != m or G == 0 or digits.shape[1] % G or digits.device != x.device:
+        raise ValueError(f"lattice: digits must be (m, G W) = ({m}, {G} W) on {x.device}, got "
+                         f"{tuple(digits.shape)} on {digits.device}")
+    if nbuckets < 2:
+        raise ValueError(f"lattice: nbuckets must be >= 2, got {nbuckets}")
+    return m, G, digits.shape[1] // G
+
+
+def lattice_buckets_plain(spec: FieldSpec, x, y, digits, nbuckets: int, signed: bool, ext: int = 1) -> torch.Tensor:
+    """The buckets of the bucket lattice (tpu_ec/ops/msm.py::_msm_lattice's
+    accumulation): step t adds the affine point (x[t, g], y[t, g]) of each
+    group g, y negated where a signed digit is negative, into slot |d| of
+    each of its (g, j) lanes, d the digit of window j, with K3's add_mixed
+    formulas and select tree; a lane whose digit is 0 keeps its buckets (tpu_ec
+    adds into slot 0, which nothing reads).  One batched op a step.  ``x``,
+    ``y``: (m, G, L) (L: ext times the field's half-limbs); ``digits``: (m,
+    G W) window digits, lane g W + j; returns the (nbuckets, G, W, 3 L)
+    fused buckets X | Y | Z, slot 0 all zero."""
+    m, G, W = _lattice_shape(x, y, digits, nbuckets)
+    L, GW = _width(spec, ext), G * W
+    rows = digits.abs().long() * GW + torch.arange(GW, device=digits.device)
+    idle = digits == 0
+    if signed:
+        y_neg = _plain_field(spec, ext, y.device).neg(y.to(torch.int64)).to(y.dtype)
+        negative = (digits < 0).reshape(m, G, W, 1)
+    buckets = x.new_zeros((nbuckets * GW, 3 * L))
+    for t in range(m):
+        cur = buckets[rows[t]]
+        ax = x[t].unsqueeze(1).expand(G, W, L)
+        ay = y[t].unsqueeze(1).expand(G, W, L)
+        if signed:
+            ay = torch.where(negative[t], y_neg[t].unsqueeze(1), ay)
+        new = point_op_plain(spec, "add_mixed", [*_split(cur, L), ax.reshape(GW, L), ay.reshape(GW, L)], idle[t], ext)
+        buckets[rows[t]] = torch.cat(new, dim=-1)
+    return buckets.reshape(nbuckets, G, W, 3 * L)
+
+
+def lattice_lanes_plain(spec: FieldSpec, x, y, digits, nbuckets: int, signed: bool, ext: int = 1) -> tuple:
+    """Plain version of the bucket lattice's per-lane work: the buckets of
+    :func:`lattice_buckets_plain`, then tpu_ec's running-sum reduction
+    (multiexp.cl:121-131), for k = nbuckets - 1 .. 1: running = running +
+    bucket k; acc = acc + running, from the identity, one batched K3 add at a
+    time.  Returns acc = sum_k k bucket_k of each lane, (G, W, L) (X, Y, Z)."""
+    slots = lattice_buckets_plain(spec, x, y, digits, nbuckets, signed, ext)
+    L = _width(spec, ext)
+    running = acc = tuple(torch.zeros_like(c) for c in _split(slots[0], L))
+    for k in range(nbuckets - 1, 0, -1):
+        running = point_op_plain(spec, "add", [*running, *_split(slots[k], L)], ext=ext)
+        acc = point_op_plain(spec, "add", [*acc, *running], ext=ext)
+    return acc
+
+
+def lattice_lanes(spec: FieldSpec, x, y, digits, nbuckets: int, signed: bool, ext: int = 1) -> tuple:
+    """The bucket lattice's per-lane work in one kernel launch (one tile of
+    lanes a (group, window) lane runs its buckets' mixed adds in step order
+    and then their running sum; bit-identical to :func:`lattice_lanes_plain`).
+    ``x``, ``y``: the (m, G, L) affine points of the steps; ``digits``: (m,
+    G W) window digits (``ops.msm.make_digits``), |d| < ``nbuckets``, signed
+    or not; returns (G, W, L) (X, Y, Z), sum_k k bucket_k of each lane.  CPU
+    tensors take the plain version; on CUDA everything is int32 (the points'
+    last axis contiguous, the digits contiguous) and the kernel runs on the
+    current stream, its bucket table a zeroed scratch tensor."""
+    m, G, W = _lattice_shape(x, y, digits, nbuckets)
+    L = _width(spec, ext)
+    if x.device.type == "cpu":
+        return lattice_lanes_plain(spec, x, y, digits, nbuckets, signed, ext)
+    flat = row_views("point lattice", (x, y), L)
+    check_cuda(digits, "lattice digits", torch.int32)
+    table = torch.zeros(((nbuckets - 1) * G * W, 3 * L), dtype=torch.int32, device=x.device)
+    outs = [torch.empty((G * W, L), dtype=torch.int32, device=x.device) for _ in range(3)]
+    lib = load()
+    err = _entry(lib, "tec_point_lattice", ext)(
+        spec.n_limbs // 2, flat[0].data_ptr(), flat[0].stride(0), flat[1].data_ptr(), flat[1].stride(0),
+        digits.data_ptr(), m, G, W, nbuckets, table.data_ptr(), (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs]),
+        field_consts(spec), stream(),
+    )
+    check(lib, err, "point lattice")
+    _count(ext, 3)
+    return tuple(o.reshape(G, W, L) for o in outs)
+
+
 def chain_tile(spec: FieldSpec, ext: int = 1) -> int:
     """The lanes of one chain of the chain entries (:func:`horner`,
-    :func:`point_scalar_mul`, :func:`ec_fft_stage`) over ``spec`` at ``ext``,
-    fixed in ``csrc/chain.cuh``; builds the kernels on first call."""
+    :func:`point_scalar_mul`, :func:`ec_fft_stage`, :func:`lattice_lanes`)
+    over ``spec`` at ``ext``, fixed in ``csrc/chain.cuh``; builds the kernels
+    on first call."""
     _width(spec, ext)
     return load().tec_chain_tile(spec.n_limbs // 2, ext)
 

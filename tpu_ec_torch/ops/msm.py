@@ -25,7 +25,7 @@ from ..curves.params import CurveSpec
 from ..curves.point import PointOps
 from ..errors import Aborted
 from ..fields.limbs import resolve_device
-from ..kernels.point import horner
+from ..kernels.point import horner, lattice_lanes
 from ..utils import timer
 
 SCALAR_BITS = 256  # Fr limb width for both supported curves (16 x 16-bit)
@@ -103,61 +103,34 @@ def prepare_inputs(bases, scalars: torch.Tensor, num_groups: int):
     return points, s, m
 
 
-def lattice_steps(m: int, G: int, window_size: int, signed: bool) -> dict:
-    """K3 launches of ``msm_lattice`` on an (m, G) lattice: m add_mixed
-    (one a step), 2 (nbuckets - 1) + log2(G) adds (the bucket reduction,
-    the group tree) and one Horner."""
-    nbuckets = (1 << (window_size - 1) if signed else (1 << window_size) - 1) + 1
-    return {"add_mixed": m, "add": 2 * (nbuckets - 1) + (G.bit_length() - 1), "horner": 1}
+def lattice_steps(G: int) -> dict:
+    """K3 launches of ``msm_lattice`` on a lattice of G groups, whatever
+    its steps, window and sign: one lattice entry (every lane's buckets and
+    running sum), log2(G) adds (the group tree) and one Horner."""
+    return {"lattice": 1, "add": G.bit_length() - 1, "horner": 1}
 
 
 def msm_lattice(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int, signed: bool):
     """One MSM on the bucket lattice -> a Jacobian point, batch (1,).
 
     ``points``: affine (x, y) of (m, G, L); ``scalars``: (m, G, Ls + 1)
-    plain zero-padded limbs (``prepare_inputs``).  The buckets are one
-    (nbuckets, G W, 3L) row table, slot 0 the dummy of digit 0.  Step t
-    gathers the (G, W) slots that row t's digits name, adds the points
-    (K3 ``add_mixed``, y negated where a signed digit is negative) and
-    scatters back: within a step every (group, window) lane owns its own
-    slot, so the scatter's rows are distinct.  Digit-0 lanes keep their
-    bucket (``keep``): tpu_ec adds them into slot 0, which nothing reads, so
-    the result is the same.  Then tpu_ec's triangular running-sum
-    reduction over the slots (two K3 adds a slot), the halving tree over
-    the groups, and the window combine in one K3 Horner launch (its
-    doubling and add order is tpu_ec's loop's, so the Jacobian result is
-    tpu_ec's bit for bit)."""
-    from .msm_scan import _unfuse
-
+    plain zero-padded limbs (``prepare_inputs``).  Each (group, window)
+    lane adds step t's point of its group into bucket |d| of its digit d (y
+    negated where a signed digit is negative; a zero digit adds nothing:
+    tpu_ec adds it into slot 0, which nothing reads), then reduces its
+    buckets by tpu_ec's triangular running sum, in one K3 launch
+    (``kernels.point.lattice_lanes``: one tile of lanes a lane, each bucket
+    in tpu_ec's step order from the identity).  Then the halving tree over
+    the groups (log2 G K3 adds) and the window combine in one K3 Horner
+    launch (its doubling and add order is tpu_ec's loop's, so the Jacobian
+    result is tpu_ec's bit for bit)."""
     w = window_size
     W = -(-SCALAR_BITS // w)
     nbuckets = (1 << (w - 1) if signed else (1 << w) - 1) + 1
     m, G = scalars.shape[:2]
-    L, GW = ops.width, G * W
     x, y = points
-    digits = make_digits(scalars.reshape(m * G, -1), w, W, signed).reshape(m, GW)
-    rows = digits.abs().long() * GW + torch.arange(GW, device=digits.device)
-    idle = digits == 0
-    if signed:
-        y_neg = ops.F.neg(y)
-        negative = (digits < 0).reshape(m, G, W, 1)
-    buckets = x.new_zeros((nbuckets * GW, 3 * L))
-    cur, new = x.new_empty((GW, 3 * L)), x.new_empty((GW, 3 * L))
-    for t in range(m):
-        torch.index_select(buckets, 0, rows[t], out=cur)
-        ax = x[t].unsqueeze(1).expand(G, W, L)
-        ay = y[t].unsqueeze(1).expand(G, W, L)
-        if signed:
-            ay = torch.where(negative[t], y_neg[t].unsqueeze(1), ay)
-        ops.add_mixed(_unfuse(cur, L, 3), (ax.reshape(GW, L), ay.reshape(GW, L)), keep=idle[t], out=new)
-        buckets.index_copy_(0, rows[t], new)
-
-    # sum_k k * bucket[k] by the running sum, k = nbuckets - 1 .. 1
-    slots = buckets.reshape(nbuckets, G, W, 3 * L)
-    running = acc = ops.identity_jacobian((G, W))
-    for k in range(nbuckets - 1, 0, -1):
-        running = ops.add(running, _unfuse(slots[k], L, 3))
-        acc = ops.add(acc, running)
+    digits = make_digits(scalars.reshape(m * G, -1), w, W, signed).reshape(m, G * W)
+    acc = lattice_lanes(ops.spec.base, x, y, digits, nbuckets, signed, ext=ops.spec.ext)
     g = G
     while g > 1:
         acc = ops.add(tuple(c[: g // 2] for c in acc), tuple(c[g // 2 : g] for c in acc))
