@@ -1,0 +1,10 @@
+"""The share of the traced window in which no operation ran on the device:
+100 (1 - union of the device operations' intervals / window), from the
+profiler's timeline."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
