@@ -85,8 +85,10 @@ def test_timer_phases(timing):
 
 
 def test_timer_msm_phases(timing, monkeypatch):
-    """multiexp records its marshalling and its engine call, for the engines
-    and the lattice alike (the engines stubbed: the phases are the test)."""
+    """multiexp records its entry span "msm", around the input marshalling
+    and the engine's call, for the engines and the lattice alike (the
+    engines stubbed: the spans are the test); the old "msm/prepare" and
+    "msm/dispatch" phases are gone."""
     monkeypatch.setattr(tmsm, "msm_lattice", lambda *a, **kw: "lattice")
     monkeypatch.setattr(tscan, "msm_scan", lambda *a, **kw: "scan")
     timer.enable()
@@ -94,10 +96,11 @@ def test_timer_msm_phases(timing, monkeypatch):
     ops = kern.ops
     pts = ops.from_affine_ints(oracle.random_points(jcp.BN254_G1, 2, seed=1))
     s = ops.scalars_to_limbs([3, 5])
-    kern.multiexp(pts, s, method="scan", window_size=8)
-    kern.multiexp(pts, s, signed=False, window_size=8)
+    assert kern.multiexp(pts, s, method="scan", window_size=8) == "scan"
+    assert kern.multiexp(pts, s, signed=False, window_size=8) == "lattice"
     summary = timer.STATS.summary()
-    assert summary["msm/prepare"]["count"] == summary["msm/dispatch"]["count"] == 2
+    assert summary["msm"]["count"] == 2 and summary["msm"]["device_ms"] is None
+    assert "msm/prepare" not in summary and "msm/dispatch" not in summary
 
 
 def test_config_env(monkeypatch):

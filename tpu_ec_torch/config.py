@@ -76,7 +76,8 @@ class Config:
     msm_hbm_budget_bytes: int | None = None
     # host worker pool size (utils/threadpool); 0 = the CPU count
     num_threads: int = 0
-    # per-phase wall-clock timing (utils/timer), off by default
+    # per-span host and device timing (utils/timer: timer.report()), off by
+    # default; the spans reach a torch profiler whether or not it is on
     timer: bool = False
     # the fewest devices make_mesh may degrade to before it raises
     min_devices: int = 1

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.mont import mont_mul
+from ..utils.timer import phase
 from .limbs import LIMB_BITS, LIMB_MASK, add_plain, resolve_device, storage_dtype, sub_borrow, sub_plain
 from .params import FieldSpec, int_to_limbs, limbs_to_int
 
@@ -65,7 +66,8 @@ class FieldOps:
         self.unit = self._t(int_to_limbs(1, self.L))  # plain 1, for from_mont
 
     def _t(self, limbs) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(limbs, np.int64), device=self.device).to(self.dtype)
+        with phase("wait/upload_constant"):  # a copy from pageable host memory
+            return torch.as_tensor(np.asarray(limbs, np.int64), device=self.device).to(self.dtype)
 
     def constant(self, value: int, mont: bool = True) -> torch.Tensor:
         """A Python-int field element as an (L,) limb tensor on the device."""

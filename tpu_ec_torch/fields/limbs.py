@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..errors import DeviceError
+from ..utils.timer import phase
 from .params import FieldSpec
 
 LIMB_BITS = 16
@@ -66,8 +67,11 @@ def normalize(cols: torch.Tensor, n_out: int) -> torch.Tensor:
     passes = 0
     while True:
         c = x >> LIMB_BITS
-        if passes >= 3 and not bool(c.any()):
-            return x
+        if passes >= 3:
+            with phase("wait/carry_test"):
+                done = not bool(c.any())
+            if done:
+                return x
         x &= LIMB_MASK
         x[..., 1:] += c[..., :-1]
         passes += 1
@@ -82,7 +86,9 @@ def sub_borrow(a: torch.Tensor, b: torch.Tensor):
     borrow = torch.zeros(t.shape[:-1], dtype=torch.bool, device=t.device)
     while True:
         neg = t < 0
-        if not bool(neg.any()):
+        with phase("wait/borrow_test"):
+            done = not bool(neg.any())
+        if done:
             return t, borrow
         borrow |= neg[..., -1]
         negi = neg.to(t.dtype)

@@ -29,6 +29,7 @@ import torch
 from ..config import get_config
 from ..errors import DeviceError
 from ..fields.params import FieldSpec
+from ..utils.timer import phase
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # one nvcc process each, all started together (the longest compiles first)
@@ -129,8 +130,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        build()
-        lib = ctypes.CDLL(library_path())
+        with phase("build/kernels"):
+            build()
+            lib = ctypes.CDLL(library_path())
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tec_mont_mul.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
         lib.tec_mont_mul.restype = i32

@@ -16,16 +16,19 @@ import functools
 import json
 import os
 
+from ..utils.timer import phase
+
 _TABLE_PATH = os.path.join(os.path.dirname(__file__), "tuned_windows.json")
 
 
 @functools.lru_cache(maxsize=1)
 def _table() -> dict:
     """The table on disk; a missing file is an empty table."""
-    if not os.path.exists(_TABLE_PATH):
-        return {}
-    with open(_TABLE_PATH) as fh:
-        return json.load(fh)
+    with phase("build/window_table"):
+        if not os.path.exists(_TABLE_PATH):
+            return {}
+        with open(_TABLE_PATH) as fh:
+            return json.load(fh)
 
 
 def tuned_window(curve_name: str, engine: str, n: int) -> int | None:

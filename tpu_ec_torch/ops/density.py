@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.timer import phase
+
 
 class FullDensity:
     """Marker: every term present (multiexp_cpu.rs:97-116)."""
@@ -84,6 +86,7 @@ def compact_by_density(density, bases, scalars: torch.Tensor, skip: int = 0):
     returns (bases', scalars') on their devices, ready for
     ``MultiexpKernel.multiexp``."""
     (idx,) = np.nonzero(density.generate_mask(scalars.shape[0]))
-    sidx = torch.as_tensor(idx, dtype=torch.int64, device=scalars.device)
-    bidx = torch.as_tensor(idx + skip, dtype=torch.int64, device=bases[0].device)
+    with phase("wait/upload_index"):  # a copy from pageable host memory
+        sidx = torch.as_tensor(idx, dtype=torch.int64, device=scalars.device)
+        bidx = torch.as_tensor(idx + skip, dtype=torch.int64, device=bases[0].device)
     return tuple(c.index_select(0, bidx) for c in bases), scalars.index_select(0, sidx)

@@ -22,6 +22,7 @@ domain.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from ..fields.bigint import np_mont_mul
 from ..fields.limbs import resolve_device
 from ..fields.params import int_to_limbs
 from ..kernels.point import ec_fft_stage
+from ..utils.timer import phase
 from .ntt import Domain, bit_reverse_permutation, get_domain, twiddle_table_np
 
 
@@ -69,7 +71,8 @@ class EcDomain:
 
 @functools.lru_cache(maxsize=64)
 def get_ec_domain(spec: CurveSpec, log_n: int, inverse: bool = False) -> EcDomain:
-    return EcDomain(spec, log_n, inverse)
+    with phase("build/ec_domain"):
+        return EcDomain(spec, log_n, inverse)
 
 
 class EcFftKernel:
@@ -94,13 +97,14 @@ class EcFftKernel:
         device, built once."""
         key = (log_n, inverse)
         if key not in self._tables:
-            dom = get_ec_domain(self.spec, log_n, inverse)
-            dtype = self.ops.fr.dtype
-            self._tables[key] = (
-                torch.as_tensor(dom.twiddle_scalars.astype(np.int64)).to(self.device, dtype),
-                torch.as_tensor(dom.n_inv_scalar.astype(np.int64)).to(self.device, dtype),
-                torch.as_tensor(dom.rev.astype(np.int64)).to(self.device),
-            )
+            with phase("build/ec_domain_tensors"):
+                dom = get_ec_domain(self.spec, log_n, inverse)
+                dtype = self.ops.fr.dtype
+                self._tables[key] = (
+                    torch.as_tensor(dom.twiddle_scalars.astype(np.int64)).to(self.device, dtype),
+                    torch.as_tensor(dom.n_inv_scalar.astype(np.int64)).to(self.device, dtype),
+                    torch.as_tensor(dom.rev.astype(np.int64)).to(self.device),
+                )
         return self._tables[key]
 
     def _transform(self, P, inverse: bool):
@@ -114,15 +118,25 @@ class EcFftKernel:
         tw, n_inv, rev = self._domain_tensors(log_n, inverse)
         Y = tuple(P)
         for s in range(log_n):
-            Y = ec_fft_stage(self.spec.base, Y, tw, s, ext=self.spec.ext)
-        Y = tuple(c.index_select(-2, rev) for c in Y)
-        return self.ops.scalar_mul(Y, n_inv) if inverse else Y
+            with phase("ec_fft/stage"):
+                Y = ec_fft_stage(self.spec.base, Y, tw, s, ext=self.spec.ext)
+        with phase("ec_fft/bit_reverse"):
+            Y = tuple(c.index_select(-2, rev) for c in Y)
+        if not inverse:
+            return Y
+        with phase("ec_fft/scale"):
+            return self.ops.scalar_mul(Y, n_inv)
+
+    def _span(self, P, inverse: bool, batch: int):
+        """The entry span "ec_fft" of transforms of P's length."""
+        return phase("ec_fft", curve=self.spec.name, n=P[0].shape[-2], batch=batch, inverse=inverse)
 
     def radix_ec_fft(self, P, inverse: bool = False):
         """The EC-FFT of one Jacobian batch P = (X, Y, Z), each (n, L) (L =
         ``PointOps.width``), n a power of two; natural order in and out."""
         self._check_abort()
-        return self._transform(P, inverse)
+        with self._span(P, inverse, math.prod(P[0].shape[:-2])):
+            return self._transform(P, inverse)
 
     def radix_ec_fft_many(self, Ps, inverse: bool = False):
         """Several transforms.  A list of Jacobian batches of one length is
@@ -130,13 +144,15 @@ class EcFftKernel:
         list of differing lengths runs one transform at a time, polling
         abort before each; a tuple (X, Y, Z) of (B, n, L) tensors is one
         stacked batch and comes back as one."""
-        if isinstance(Ps, list):
-            if len({P[0].shape[0] for P in Ps}) != 1:
-                return [self.radix_ec_fft(P, inverse) for P in Ps]
-            res = self.radix_ec_fft_many(tuple(torch.stack(cs) for cs in zip(*Ps)), inverse)
-            return [tuple(c[i] for c in res) for i in range(len(Ps))]
+        if isinstance(Ps, list) and len({P[0].shape[0] for P in Ps}) != 1:
+            return [self.radix_ec_fft(P, inverse) for P in Ps]
         self._check_abort()
-        return self._transform(Ps, inverse)
+        if isinstance(Ps, list):
+            with self._span(Ps[0], inverse, len(Ps)):
+                res = self._transform(tuple(torch.stack(cs) for cs in zip(*Ps)), inverse)
+            return [tuple(c[i] for c in res) for i in range(len(Ps))]
+        with self._span(Ps, inverse, math.prod(Ps[0].shape[:-2])):
+            return self._transform(Ps, inverse)
 
 
 def radix_ec_fft(spec: CurveSpec, P, inverse: bool = False, device="cuda"):

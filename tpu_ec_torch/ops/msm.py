@@ -26,7 +26,7 @@ from ..curves.point import PointOps
 from ..errors import Aborted
 from ..fields.limbs import resolve_device
 from ..kernels.point import horner, lattice_lanes
-from ..utils import timer
+from ..utils.timer import phase
 
 SCALAR_BITS = 256  # Fr limb width for both supported curves (16 x 16-bit)
 
@@ -129,13 +129,16 @@ def msm_lattice(ops: PointOps, points, scalars: torch.Tensor, *, window_size: in
     nbuckets = (1 << (w - 1) if signed else (1 << w) - 1) + 1
     m, G = scalars.shape[:2]
     x, y = points
-    digits = make_digits(scalars.reshape(m * G, -1), w, W, signed).reshape(m, G * W)
-    acc = lattice_lanes(ops.spec.base, x, y, digits, nbuckets, signed, ext=ops.spec.ext)
-    g = G
-    while g > 1:
-        acc = ops.add(tuple(c[: g // 2] for c in acc), tuple(c[g // 2 : g] for c in acc))
-        g //= 2
-    return horner(ops.spec.base, tuple(c[0] for c in acc), w, ext=ops.spec.ext)
+    with phase("msm/digits"):
+        digits = make_digits(scalars.reshape(m * G, -1), w, W, signed).reshape(m, G * W)
+    with phase("msm/lattice"):
+        acc = lattice_lanes(ops.spec.base, x, y, digits, nbuckets, signed, ext=ops.spec.ext)
+        g = G
+        while g > 1:
+            acc = ops.add(tuple(c[: g // 2] for c in acc), tuple(c[g // 2 : g] for c in acc))
+            g //= 2
+    with phase("msm/horner"):
+        return horner(ops.spec.base, tuple(c[0] for c in acc), w, ext=ops.spec.ext)
 
 
 # int32 coordinate-sized arrays live per point and window at the peak of the
@@ -157,7 +160,9 @@ def device_budget_bytes(device, hbm_budget_bytes: int | None = None) -> int:
         if dev.type != "cuda":
             return 4 << 30
         cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-        hbm_budget_bytes = torch.cuda.mem_get_info(dev)[0] + cached
+        with phase("wait/mem_get_info"):
+            free = torch.cuda.mem_get_info(dev)[0]
+        hbm_budget_bytes = free + cached
     return hbm_budget_bytes
 
 
@@ -247,9 +252,8 @@ class MultiexpKernel:
         takes ``window_size`` or ``default_window_size``, as tpu_ec's
         does).  The other engines take ``window_size``, else
         ``config.msm_window``, else the card's table (``tuned_window``),
-        else the engine's model.  With config ``timer`` on, the input
-        marshalling and the engine's call record as the phases
-        "msm/prepare" and "msm/dispatch" (``utils/timer.py``)."""
+        else the engine's model.  The call is the span "msm"
+        (``utils/timer.py``), the engine's stages its children."""
         from .autotune import tuned_window
         from .msm_coz import default_window_size_coz, msm_coz
         from .msm_pair import default_window_size_pair, msm_pair
@@ -268,9 +272,8 @@ class MultiexpKernel:
             get_logger("tpu_ec_torch.msm").info(
                 "MSM n=%d curve=%s engine=lattice window=%d groups=%d signed=%s", n, self.spec.name, w, G, signed
             )
-            with timer.phase("msm/prepare"):
+            with phase("msm", curve=self.spec.name, n=n, engine="lattice", window=w, groups=G):
                 points, s, _ = prepare_inputs(bases, scalars, G)
-            with timer.phase("msm/dispatch"):
                 return msm_lattice(self.ops, points, s, window_size=w, signed=signed)
         engines = {"pair": (msm_pair, default_window_size_pair),
                    "coz": (msm_coz, default_window_size_coz),
@@ -281,15 +284,15 @@ class MultiexpKernel:
         if not signed:
             raise ValueError(f"the {method} engine takes signed digits only; use method='lattice'")
         if n > self.chunk_size:
-            return self._multiexp_chunked(bases, scalars, window_size, method)
+            with phase("msm", curve=self.spec.name, n=n, engine=method, chunk=self.chunk_size):
+                return self._multiexp_chunked(bases, scalars, window_size, method)
         engine, default_w = engines[method]
         w = window_size or get_config().msm_window or tuned_window(self.spec.name, method, n) or default_w(n)
         get_logger("tpu_ec_torch.msm").info(
             "MSM n=%d curve=%s engine=%s window=%d", n, self.spec.name, method, w
         )
-        with timer.phase("msm/prepare"):
+        with phase("msm", curve=self.spec.name, n=n, engine=method, window=w):
             s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1)
-        with timer.phase("msm/dispatch"):
             return engine(self.ops, bases, s, window_size=w)
 
     def _multiexp_chunked(self, bases, scalars, window_size, method):
@@ -330,13 +333,15 @@ class MultiexpKernel:
         if method == "auto":
             method = _auto(self.spec, signed)
         if method not in ("pair", "scan"):
-            outs = []
-            for c in range(num_chunks):
-                self._check_abort()
-                sl = slice(c * chunk, (c + 1) * chunk)
-                outs.append(self.multiexp(tuple(t[sl] for t in bases), scalars[sl], window_size=window_size,
-                                          num_groups=num_groups, signed=signed, method=method))
-            return tuple(torch.cat(parts) for parts in zip(*outs))
+            with phase("msm_batch", curve=self.spec.name, n=chunk, batch=num_chunks, engine=method):
+                outs = []
+                for c in range(num_chunks):
+                    self._check_abort()
+                    sl = slice(c * chunk, (c + 1) * chunk)
+                    outs.append(self.multiexp(tuple(t[sl] for t in bases), scalars[sl], window_size=window_size,
+                                              num_groups=num_groups, signed=signed, method=method))
+                with phase("msm_batch/cat"):
+                    return tuple(torch.cat(parts) for parts in zip(*outs))
         if not signed:
             raise ValueError(f"the {method} engine takes signed digits only; use method='lattice'")
         from .autotune import tuned_window
@@ -346,23 +351,27 @@ class MultiexpKernel:
         engine, default_w = {"pair": (msm_pair, default_window_size_pair),
                              "scan": (msm_scan, default_window_size_scan)}[method]
         w = window_size or tuned_window(self.spec.name, method, chunk) or default_w(chunk)
-        slab = min(batch_slab(self.spec, method, chunk, w, self.device), num_chunks)
-        get_logger("tpu_ec_torch.msm").info(
-            "batch MSM %d chunks of %d curve=%s engine=%s window=%d slab=%d",
-            num_chunks, chunk, self.spec.name, method, w, slab,
-        )
-        pts = tuple(t.reshape(num_chunks, chunk, -1) for t in bases)
-        s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1).reshape(num_chunks, chunk, -1)
-        parts = []
-        for lo in range(0, num_chunks, slab):
-            self._check_abort()
-            p, sc = tuple(t[lo : lo + slab] for t in pts), s[lo : lo + slab]
-            pad = slab - sc.shape[0]
-            if pad:  # every slab has one shape: chunk 0's bases, zero scalars
-                p = tuple(torch.cat([c, t[:1].expand(pad, *t.shape[1:])]) for c, t in zip(p, pts))
-                sc = torch.cat([sc, sc.new_zeros((pad,) + sc.shape[1:])])
-            parts.append(engine(self.ops, p, sc, window_size=w))
-        return tuple(torch.cat(c)[:num_chunks] for c in zip(*parts))
+        with phase("msm_batch", curve=self.spec.name, n=chunk, batch=num_chunks, engine=method, window=w):
+            with phase("msm_batch/slab_size"):
+                slab = min(batch_slab(self.spec, method, chunk, w, self.device), num_chunks)
+            get_logger("tpu_ec_torch.msm").info(
+                "batch MSM %d chunks of %d curve=%s engine=%s window=%d slab=%d",
+                num_chunks, chunk, self.spec.name, method, w, slab,
+            )
+            pts = tuple(t.reshape(num_chunks, chunk, -1) for t in bases)
+            s = torch.cat([scalars, scalars.new_zeros((n, 1))], dim=1).reshape(num_chunks, chunk, -1)
+            parts = []
+            for lo in range(0, num_chunks, slab):
+                self._check_abort()
+                with phase("msm_batch/slab"):
+                    p, sc = tuple(t[lo : lo + slab] for t in pts), s[lo : lo + slab]
+                    pad = slab - sc.shape[0]
+                    if pad:  # every slab has one shape: chunk 0's bases, zero scalars
+                        p = tuple(torch.cat([c, t[:1].expand(pad, *t.shape[1:])]) for c, t in zip(p, pts))
+                        sc = torch.cat([sc, sc.new_zeros((pad,) + sc.shape[1:])])
+                    parts.append(engine(self.ops, p, sc, window_size=w))
+            with phase("msm_batch/cat"):
+                return tuple(torch.cat(c)[:num_chunks] for c in zip(*parts))
 
     def upload_bases(self, bases):
         """Pin an affine base table on the device, in the storage dtype, for

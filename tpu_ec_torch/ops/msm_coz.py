@@ -32,6 +32,7 @@ import math
 import torch
 
 from ..curves.point import PointOps
+from ..utils.timer import phase
 from .affine import coz_add_batch
 from .msm import SCALAR_BITS, make_digits
 from .msm_pair import SENT, _gather_rows, horner_combine
@@ -105,7 +106,8 @@ def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
     L = ops.L
     num_windows = -(-SCALAR_BITS // w)
     n = scalars.shape[0]
-    digits_t = make_digits(scalars, w, num_windows, True).T.contiguous()  # (W, n)
+    with phase("msm/digits"):
+        digits_t = make_digits(scalars, w, num_windows, True).T.contiguous()  # (W, n)
     key, perm = torch.sort(digits_t.abs(), dim=1, stable=True)
     # one gather per window from [points; negated points]: row perm + n
     # holds -P, taken where the digit is negative

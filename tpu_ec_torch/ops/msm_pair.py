@@ -35,6 +35,7 @@ import torch
 
 from ..curves.point import PointOps
 from ..kernels.point import horner
+from ..utils.timer import phase
 from .msm import SCALAR_BITS, make_digits
 from .msm_scan import _fuse, _unfuse, bucket_tail
 
@@ -135,21 +136,24 @@ def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
     rows = 1 << max(1, (rows0 - 1).bit_length())
     if C * (half + 1) >= SENT:
         raise ValueError(f"batch MSM: {C} chunks x {half + 1} buckets overflow the int32 keys")
-    digits = make_digits(scalars.reshape(rows0, -1), w, num_windows, True)  # (C n, W) int32
-    fused = _fuse(tuple(c.reshape(rows0, L) for c in points))  # (C n, 2L)
-    if rows != rows0:
-        digits = torch.cat([digits, digits.new_zeros((rows - rows0, num_windows))], dim=0)
-        fused = torch.cat([fused, fused.new_zeros((rows - rows0, 2 * L))], dim=0)
-    digits_t = digits.T.contiguous()  # (W, rows)
-    del digits
-    chunk_id = (torch.arange(rows, dtype=torch.int32, device=scalars.device) // n).clamp(max=C - 1)
-    key_s, perm = torch.sort(chunk_id * (half + 1) + digits_t.abs(), dim=1, stable=True)
-    # one gather per window from [points; negated points]: row perm + rows
-    # holds -P, taken where the digit is negative
-    table = torch.cat([fused, _fuse((fused[:, :L], F.neg(fused[:, L:])))], dim=0)
-    idx = perm + rows * torch.gather(digits_t < 0, 1, perm)
-    del perm, digits_t
-    return key_s, table.index_select(0, idx.reshape(-1)).reshape(num_windows, rows, 2 * L)
+    with phase("msm/digits"):
+        digits = make_digits(scalars.reshape(rows0, -1), w, num_windows, True)  # (C n, W) int32
+        if rows != rows0:
+            digits = torch.cat([digits, digits.new_zeros((rows - rows0, num_windows))], dim=0)
+        digits_t = digits.T.contiguous()  # (W, rows)
+        del digits
+    with phase("msm/pair/rows"):
+        fused = _fuse(tuple(c.reshape(rows0, L) for c in points))  # (C n, 2L)
+        if rows != rows0:
+            fused = torch.cat([fused, fused.new_zeros((rows - rows0, 2 * L))], dim=0)
+        chunk_id = (torch.arange(rows, dtype=torch.int32, device=scalars.device) // n).clamp(max=C - 1)
+        key_s, perm = torch.sort(chunk_id * (half + 1) + digits_t.abs(), dim=1, stable=True)
+        # one gather per window from [points; negated points]: row perm + rows
+        # holds -P, taken where the digit is negative
+        table = torch.cat([fused, _fuse((fused[:, :L], F.neg(fused[:, L:])))], dim=0)
+        idx = perm + rows * torch.gather(digits_t < 0, 1, perm)
+        del perm, digits_t
+        return key_s, table.index_select(0, idx.reshape(-1)).reshape(num_windows, rows, 2 * L)
 
 
 def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
@@ -173,34 +177,37 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
     spill_cap = C * (half + 1) + 1  # spills per round < #live runs <= C * (half + 1)
     spills = []
     for r in range(rounds):
-        k, d, sk, sd = _pair_round(
-            ops, k, d, affine=(r == 0), spill_cap=min(k.shape[1] // 2, spill_cap)
-        )
-        if r == 0:
-            # round-1 spills are affine rows: lift to Jacobian, keeping the
-            # identity encoding (z = 0) in empty slots
-            sd = _fuse(ops.to_jacobian(_unfuse(sd, L, 2)))
-            sd = torch.where((sk != SENT).unsqueeze(-1), sd, 0)
-        spills.append((sk, sd))
+        with phase("msm/pair/round"):
+            k, d, sk, sd = _pair_round(
+                ops, k, d, affine=(r == 0), spill_cap=min(k.shape[1] // 2, spill_cap)
+            )
+            if r == 0:
+                # round-1 spills are affine rows: lift to Jacobian, keeping the
+                # identity encoding (z = 0) in empty slots
+                sd = _fuse(ops.to_jacobian(_unfuse(sd, L, 2)))
+                sd = torch.where((sk != SENT).unsqueeze(-1), sd, 0)
+            spills.append((sk, sd))
 
     # survivors: the one remaining row + all spills; keys repeat at most
     # (#rounds + 1) times across spill generations
-    fk = torch.cat([k] + [s[0] for s in spills], dim=1)
-    fd = torch.cat([d] + [s[1] for s in spills], dim=1)
-    del k, d, spills
-    fk, order = torch.sort(fk, dim=1, stable=True)
-    fd = _gather_rows(fd, order)
-    fk, fd = _seg_scan_finish(ops, fk, fd, max(1, math.ceil(math.log2(rounds + 2))))
+    with phase("msm/pair/survivors"):
+        fk = torch.cat([k] + [s[0] for s in spills], dim=1)
+        fd = torch.cat([d] + [s[1] for s in spills], dim=1)
+        del k, d, spills
+        fk, order = torch.sort(fk, dim=1, stable=True)
+        fd = _gather_rows(fd, order)
+        fk, fd = _seg_scan_finish(ops, fk, fd, max(1, math.ceil(math.log2(rounds + 2))))
 
     # unique survivors -> pack -> scatter into the (C, half + 2) grid; an
     # empty slot goes to chunk 0's overflow slot
-    pk, pd = _masked_monotone_pack(fk, fd, fk != SENT, spill_cap)
-    del fk, fd
-    live = pk != SENT
-    chunk = torch.where(live, pk // (half + 1), 0)
-    slot = torch.where(live, pk % (half + 1), nbuckets - 1)
-    buckets = pd.new_zeros((num_windows, C * nbuckets, 3 * L))
-    buckets.scatter_(1, (chunk * nbuckets + slot).long().unsqueeze(-1).expand(pd.shape), pd)
+    with phase("msm/pair/scatter"):
+        pk, pd = _masked_monotone_pack(fk, fd, fk != SENT, spill_cap)
+        del fk, fd
+        live = pk != SENT
+        chunk = torch.where(live, pk // (half + 1), 0)
+        slot = torch.where(live, pk % (half + 1), nbuckets - 1)
+        buckets = pd.new_zeros((num_windows, C * nbuckets, 3 * L))
+        buckets.scatter_(1, (chunk * nbuckets + slot).long().unsqueeze(-1).expand(pd.shape), pd)
     return buckets.reshape(num_windows, C, nbuckets, 3 * L) if scalars.dim() == 3 else buckets
 
 
@@ -208,7 +215,8 @@ def horner_combine(ops: PointOps, partials, w: int):
     """Per-window sums (W, L), or (W, C, L) for a batch, coordinates -> the
     final point (1, L), or (C, L), high to low: res = 2^w * res + S_j
     (multiexp.rs:221-235), in one K3 launch, one tile of lanes a chunk."""
-    return horner(ops.spec.base, partials, w)
+    with phase("msm/horner"):
+        return horner(ops.spec.base, partials, w)
 
 
 def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):

@@ -28,6 +28,7 @@ import torch
 
 from ..curves.point import PointOps
 from ..kernels.point import horner
+from ..utils.timer import phase
 from .msm import SCALAR_BITS, make_digits
 
 
@@ -109,16 +110,19 @@ def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
     ``ops.width``.  Leading axes (a batch of chunks) pair each chunk's
     digits with its own points."""
     lead, (W, n) = digits_t.shape[:-2], digits_t.shape[-2:]
-    key, data = sorted_rows(ops, points, digits_t)
+    with phase("msm/scan/rows"):
+        key, data = sorted_rows(ops, points, digits_t)
     for r in range(max(0, (n - 1).bit_length())):
-        partner, keep = scan_round(data, key, 1 << r)
-        data = _fused_add(ops, data, partner, ops.width, keep=keep)
-        del partner
+        with phase("msm/scan/round"):
+            partner, keep = scan_round(data, key, 1 << r)
+            data = _fused_add(ops, data, partner, ops.width, keep=keep)
+            del partner
 
-    nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], -1)], dim=1)
-    slot = torch.where(key != nxt, key.clamp(max=half + 1), half + 1).long()
-    out = data.new_zeros((key.shape[0], half + 2, data.shape[-1]))
-    out.scatter_(1, slot.unsqueeze(-1).expand(data.shape), data)
+    with phase("msm/scan/scatter"):
+        nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], -1)], dim=1)
+        slot = torch.where(key != nxt, key.clamp(max=half + 1), half + 1).long()
+        out = data.new_zeros((key.shape[0], half + 2, data.shape[-1]))
+        out.scatter_(1, slot.unsqueeze(-1).expand(data.shape), data)
     return out.reshape(*lead, W, half + 2, data.shape[-1])
 
 
@@ -151,8 +155,9 @@ def bucket_tail(ops: PointOps, buckets: torch.Tensor, half: int):
     (slot 0 and slot half + 1 excluded): the prefix scan of the reversed
     row summed by the tree (sum of reversed prefixes = sum_k k b_k).
     Returns (..., 3L)."""
-    rev = buckets[..., 1 : half + 1, :].flip(-2)
-    return masked_tree_sum(ops, masked_prefix_scan_add(ops, rev, ops.width, half), ops.width, half)
+    with phase("msm/tail"):
+        rev = buckets[..., 1 : half + 1, :].flip(-2)
+        return masked_tree_sum(ops, masked_prefix_scan_add(ops, rev, ops.width, half), ops.width, half)
 
 
 def msm_scan(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
@@ -168,11 +173,13 @@ def msm_scan(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     if not batched:
         points, scalars = tuple(c.unsqueeze(0) for c in points), scalars.unsqueeze(0)
     C, n = scalars.shape[:2]
-    digits = make_digits(scalars.reshape(C * n, -1), w, num_windows, True)  # (C n, W)
-    digits_t = digits.reshape(C, n, num_windows).transpose(1, 2)  # (C, W, n)
+    with phase("msm/digits"):
+        digits = make_digits(scalars.reshape(C * n, -1), w, num_windows, True)  # (C n, W)
+        digits_t = digits.reshape(C, n, num_windows).transpose(1, 2)  # (C, W, n)
     buckets = scan_buckets(ops, points, digits_t, half=half)  # (C, W, half + 2, 3L)
     tri = bucket_tail(ops, buckets, half).transpose(0, 1)  # (W, C, 3L)
-    return horner(ops.spec.base, _unfuse(tri, L, 3), w, ext=ops.spec.ext)
+    with phase("msm/horner"):
+        return horner(ops.spec.base, _unfuse(tri, L, 3), w, ext=ops.spec.ext)
 
 
 def default_window_size_scan(n: int) -> int:

@@ -32,6 +32,7 @@ import torch
 
 from ..curves.point import PointOps
 from ..kernels.point import horner
+from ..utils.timer import phase
 from .msm import SCALAR_BITS, make_digits
 from .msm_scan import _fuse, _unfuse, bucket_tail, sorted_affine_rows
 
@@ -149,7 +150,8 @@ def msm_sorted(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int
     n = scalars.shape[0]
     nbuckets = half + 2
 
-    digits_t = make_digits(scalars, w, num_windows, True).T  # (W, n)
+    with phase("msm/digits"):
+        digits_t = make_digits(scalars, w, num_windows, True).T  # (W, n)
     key, data = sorted_affine_rows(ops, points, digits_t)  # (W, n), (W, n, 2L)
     del digits_t
 
@@ -167,4 +169,5 @@ def msm_sorted(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int
     buckets = data.new_zeros((num_windows, nbuckets, 3 * L))
     buckets.scatter_(1, slot.unsqueeze(-1).expand(data.shape), data)
     tri = bucket_tail(ops, buckets, half)  # (W, 3L)
-    return horner(ops.spec.base, _unfuse(tri, L, 3), w, ext=ops.spec.ext)
+    with phase("msm/horner"):
+        return horner(ops.spec.base, _unfuse(tri, L, 3), w, ext=ops.spec.ext)

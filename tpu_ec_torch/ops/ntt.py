@@ -27,6 +27,7 @@ from ..fields.fp import FieldOps
 from ..fields.limbs import resolve_device, storage_dtype
 from ..fields.params import FieldSpec, int_to_limbs
 from ..kernels.butterfly import pease_stages
+from ..utils.timer import phase
 
 MAX_LOG2_FFT = 32
 DIGIT_MIN_LOG = 10  # log_n at and above which the ntt_impl route (digit or fused) runs
@@ -85,7 +86,8 @@ class Domain:
 
 @functools.lru_cache(maxsize=64)
 def get_domain(spec: FieldSpec, log_n: int, inverse: bool = False) -> Domain:
-    return Domain(spec, log_n, inverse)
+    with phase("build/ntt_domain"):
+        return Domain(spec, log_n, inverse)
 
 
 def _ntt_impl(f: FieldOps, dom: Domain, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
@@ -142,7 +144,8 @@ class FftKernel:
             dom = get_fused_domain(self.spec, log_n, inverse)
             key += (dom.leaf,)
             if key not in self._consts:
-                self._consts[key] = fused_consts(dom, self.device)
+                with phase("build/fused_consts"):
+                    self._consts[key] = fused_consts(dom, self.device)
             return fused_ntt(self.f, dom, x, self._consts[key])
         raise ValueError(f"unknown ntt_impl {cfg.ntt_impl!r} (digit or fused)")
 
@@ -151,8 +154,9 @@ class FftKernel:
         dom = get_domain(self.spec, log_n, inverse)
         key = ("pease", log_n, inverse, x.device)
         if key not in self._consts:
-            self._consts[key] = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(
-                storage_dtype(x.device))
+            with phase("build/ntt_twiddles"):
+                self._consts[key] = torch.as_tensor(dom.twiddles.astype(np.int64), device=x.device).to(
+                    storage_dtype(x.device))
         y = _ntt_impl(self.f, dom, x, self._consts[key])
         return self.mul_by_field(y, dom.n_inv) if inverse else y
 
@@ -160,9 +164,10 @@ class FftKernel:
         """NTT of an (n, L) Montgomery batch; returns (n, L) canonical values."""
         log_n = _log2_size(x.shape[0])
         self._check_abort()
-        if log_n >= DIGIT_MIN_LOG:
-            return self._large(x, log_n, inverse)
-        return self._small(x, log_n, inverse)
+        with phase("ntt", field=self.spec.name, n=x.shape[0], inverse=inverse):
+            if log_n >= DIGIT_MIN_LOG:
+                return self._large(x, log_n, inverse)
+            return self._small(x, log_n, inverse)
 
     def radix_fft_many(self, xs, inverse: bool = False):
         """Batched transform: ``xs`` is (B, n, L) or a list of (n, L).  Below
@@ -176,9 +181,10 @@ class FftKernel:
             return out
         self._check_abort()
         log_n = _log2_size(xs.shape[1])
-        if log_n >= DIGIT_MIN_LOG:
-            return torch.stack([self.radix_fft(x, inverse) for x in xs])
-        return self._small(xs, log_n, inverse)
+        with phase("ntt", field=self.spec.name, n=xs.shape[1], batch=xs.shape[0], inverse=inverse):
+            if log_n >= DIGIT_MIN_LOG:
+                return torch.stack([self.radix_fft(x, inverse) for x in xs])
+            return self._small(xs, log_n, inverse)
 
     def mul_by_field(self, x: torch.Tensor, scalar) -> torch.Tensor:
         """Elementwise scale by one field element (kernel K1): ``scalar`` is

@@ -44,6 +44,7 @@ from ..fields.limbs import storage_dtype
 from ..fields.params import LIMB_BITS, FieldSpec, int_to_limbs
 from ..kernels.inter import inter_twiddle
 from ..kernels.mont import mont_mul
+from ..utils.timer import phase
 from .ntt import get_domain, twiddle_table_np
 
 DIGIT_BITS = 7
@@ -388,7 +389,8 @@ def get_digit_domain(spec: FieldSpec, log_n: int, inverse: bool, leaf: int) -> D
 
 @functools.lru_cache(maxsize=16)
 def _digit_domain(spec, log_n, inverse, leaf, *thresholds) -> DigitDomain:
-    return DigitDomain(spec, log_n, inverse, leaf)  # the thresholds only key the cache
+    with phase("build/digit_domain"):
+        return DigitDomain(spec, log_n, inverse, leaf)  # the thresholds only key the cache
 
 
 def digit_consts(dom: DigitDomain, device) -> dict:
@@ -397,21 +399,22 @@ def digit_consts(dom: DigitDomain, device) -> dict:
     or built with K1) or its factored seeds, and the constants of the last
     passes in storage dtype.  A materialised table of 2^26 elements takes
     4 GiB."""
-    A = {}
-    for lf, mat in dom.matrices.items():
-        d_out, m, _, d_in = mat.shape
-        A[lf] = torch.as_tensor(mat.reshape(d_out * m, m * d_in), device=device)
-    inter = {}
-    for (log_m, log_n1), v in dom.inter.items():
-        if isinstance(v, np.ndarray):
-            inter[(log_m, log_n1)] = _limbs(np.transpose(v, (1, 2, 0)), device)
-        elif v == "factored":
-            inter[(log_m, log_n1)] = _factored_seeds(dom, log_m, log_n1, device)
-        else:
-            inter[(log_m, log_n1)] = inter_table288_device(
-                dom.spec, dom.omega, dom.log_n, log_m, log_n1, device)
-    return {"A": A, "inter": inter, "final_c": _limbs(dom.final_c, device),
-            "c288": _limbs(_c288(dom.spec), device)}
+    with phase("build/digit_consts"):
+        A = {}
+        for lf, mat in dom.matrices.items():
+            d_out, m, _, d_in = mat.shape
+            A[lf] = torch.as_tensor(mat.reshape(d_out * m, m * d_in), device=device)
+        inter = {}
+        for (log_m, log_n1), v in dom.inter.items():
+            if isinstance(v, np.ndarray):
+                inter[(log_m, log_n1)] = _limbs(np.transpose(v, (1, 2, 0)), device)
+            elif v == "factored":
+                inter[(log_m, log_n1)] = _factored_seeds(dom, log_m, log_n1, device)
+            else:
+                inter[(log_m, log_n1)] = inter_table288_device(
+                    dom.spec, dom.omega, dom.log_n, log_m, log_n1, device)
+        return {"A": A, "inter": inter, "final_c": _limbs(dom.final_c, device),
+                "c288": _limbs(_c288(dom.spec), device)}
 
 
 def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int) -> torch.Tensor:
@@ -484,18 +487,23 @@ def _transform(dom: DigitDomain, consts: dict, x: torch.Tensor, out_rows: bool =
     for log_n2 in dom.plan[:-1]:
         log_n1 = log_m - log_n2
         n1, n2 = 1 << log_n1, 1 << log_n2
-        xk = _leaf_rhs(x.view(d_in, n2, n1 * M))
+        with phase("ntt/leaf_rhs"):
+            xk = _leaf_rhs(x.view(d_in, n2, n1 * M))
         del x
         T = inter[(log_m, log_n1)]
         if chunked or isinstance(T, dict):
-            y = _chunked_level(dom, A[log_n2], xk, T, n1, n2, M)
+            with phase("ntt/chunked_level"):
+                y = _chunked_level(dom, A[log_n2], xk, T, n1, n2, M)
         else:
-            cols = _leaf_mm(A[log_n2], xk, n1 * M)  # (d_out * n2, n1 * M)
+            with phase("ntt/leaf_mm"):
+                cols = _leaf_mm(A[log_n2], xk, n1 * M)  # (d_out * n2, n1 * M)
             del xk
-            y = inter_twiddle(spec, cols.view(-1, total), T.view(n2 * n1, -1), t_rep=M)
+            with phase("ntt/inter_twiddle"):
+                y = inter_twiddle(spec, cols.view(-1, total), T.view(n2 * n1, -1), t_rep=M)
             del cols
         # transpose and go on with the size-n1 transforms, batched over (k2, M)
-        x = y.view(d_in, n2, n1, M).transpose(1, 2).contiguous().view(d_in, n1, n2 * M)
+        with phase("ntt/transpose"):
+            x = y.view(d_in, n2, n1, M).transpose(1, 2).contiguous().view(d_in, n1, n2 * M)
         del y
         log_m, M = log_n1, n2 * M
     m = 1 << log_m
@@ -505,17 +513,22 @@ def _transform(dom: DigitDomain, consts: dict, x: torch.Tensor, out_rows: bool =
         out = torch.empty((d_in, m, M), dtype=torch.int8, device=x.device)
         for ci in range(nc):
             s = slice(ci * mc, (ci + 1) * mc)
-            cols = _leaf_mm(A[log_m], _leaf_rhs(x[:, :, s]), mc)
-            dig = inter_twiddle(spec, cols.view(-1, m * mc), consts["c288"], const_t=True)
+            with phase("ntt/leaf_mm"):
+                cols = _leaf_mm(A[log_m], _leaf_rhs(x[:, :, s]), mc)
+            with phase("ntt/inter_twiddle"):
+                dig = inter_twiddle(spec, cols.view(-1, m * mc), consts["c288"], const_t=True)
             del cols
             out[:, :, s] = dig.view(d_in, m, mc)
     else:
-        xk = _leaf_rhs(x)
+        with phase("ntt/leaf_rhs"):
+            xk = _leaf_rhs(x)
         del x
-        out = _leaf_mm(A[log_m], xk, M)  # (d_out * m, M)
+        with phase("ntt/leaf_mm"):
+            out = _leaf_mm(A[log_m], xk, M)  # (d_out * m, M)
         del xk
-    return inter_twiddle(spec, out.view(-1, total), consts["final_c"], canonical=True, const_t=True,
-                         out_rows=out_rows)
+    with phase("ntt/inter_twiddle"):
+        return inter_twiddle(spec, out.view(-1, total), consts["final_c"], canonical=True, const_t=True,
+                             out_rows=out_rows)
 
 
 def _prepare(spec: FieldSpec, n: int, inverse: bool, leaf: int | None, consts: dict | None, device):
@@ -540,7 +553,9 @@ def digit_ntt_planes(
     canonical Montgomery planes (< p) in the storage dtype."""
     L16, n = xp.shape
     dom, consts = _prepare(spec, n, inverse, leaf, consts, xp.device)
-    return _transform(dom, consts, split_digits_rows(xp, dom.d_in).view(dom.d_in, n, 1))
+    with phase("ntt/split_digits"):
+        xd = split_digits_rows(xp, dom.d_in).view(dom.d_in, n, 1)
+    return _transform(dom, consts, xd)
 
 
 def digit_ntt_rows(
@@ -557,7 +572,9 @@ def digit_ntt_rows(
     made."""
     n = x.shape[0]
     dom, consts = _prepare(spec, n, inverse, leaf, consts, x.device)
-    return _transform(dom, consts, _split_rows(x, dom.d_in).view(dom.d_in, n, 1), out_rows=True)
+    with phase("ntt/split_rows"):
+        xd = _split_rows(x, dom.d_in).view(dom.d_in, n, 1)
+    return _transform(dom, consts, xd, out_rows=True)
 
 
 def digit_ntt_planes_batch(
@@ -576,5 +593,7 @@ def digit_ntt_planes_batch(
     transform, as ``digit_ntt_planes`` does."""
     L16, n, B = xpb.shape
     dom, consts = _prepare(spec, n, inverse, leaf, consts, xpb.device)
-    y = _transform(dom, consts, split_digits_rows(xpb, dom.d_in))
+    with phase("ntt/split_digits"):
+        xd = split_digits_rows(xpb, dom.d_in)
+    y = _transform(dom, consts, xd)
     return y.view(L16, n, B)

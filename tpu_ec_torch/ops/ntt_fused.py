@@ -31,6 +31,7 @@ from ..fields.fp import FieldOps
 from ..fields.limbs import storage_dtype
 from ..fields.params import FieldSpec
 from ..kernels.ntt_leaf import MAX_LEAF_LOG, ntt_leaf
+from ..utils.timer import phase
 from .ntt import get_domain, twiddle_table_np
 from .ntt_digit import cached_table, inter_table_np
 
@@ -92,7 +93,8 @@ class FusedDomain:
 
 @functools.lru_cache(maxsize=32)
 def _fused_domain(spec: FieldSpec, log_n: int, inverse: bool, leaf: int) -> FusedDomain:
-    return FusedDomain(spec, log_n, inverse, leaf)
+    with phase("build/fused_domain"):
+        return FusedDomain(spec, log_n, inverse, leaf)
 
 
 def get_fused_domain(spec: FieldSpec, log_n: int, inverse: bool = False) -> FusedDomain:

@@ -19,6 +19,7 @@ import torch
 from ..curves.params import CurveSpec
 from ..fields.fp import FieldOps
 from ..fields.limbs import resolve_device
+from ..utils.timer import phase
 from .density import compact_by_density
 from .msm import MultiexpKernel
 from .ntt import FftKernel
@@ -41,15 +42,20 @@ class CommitPipeline:
         """coeffs: (n, Ls) Fr Montgomery limbs; basis: affine (x, y) of n G1
         or G2 points.  Returns (evals (n, Ls) Montgomery, commitment: a Jacobian
         point with batch shape (1,))."""
-        evals = self.fft.radix_fft(coeffs)
-        scalars = self.fr.from_mont(evals)  # plain ints for digit extraction
-        return evals, self.msm.multiexp(basis, scalars)
+        with phase("commit", curve=self.spec.name, n=coeffs.shape[0]):
+            evals = self.fft.radix_fft(coeffs)
+            with phase("from_mont"):
+                scalars = self.fr.from_mont(evals)  # plain ints for digit extraction
+            return evals, self.msm.multiexp(basis, scalars)
 
     def commit_coefficient_basis(self, coeffs: torch.Tensor, srs):
         """Commit in the coefficient basis (plain KZG, C = sum c_i [tau^i]G):
         no NTT, one from_mont (K1) and the MSM.  Returns the commitment, a
         Jacobian point with batch shape (1,)."""
-        return self.msm.multiexp(srs, self.fr.from_mont(coeffs))
+        with phase("commit", curve=self.spec.name, n=coeffs.shape[0], basis="coefficient"):
+            with phase("from_mont"):
+                scalars = self.fr.from_mont(coeffs)
+            return self.msm.multiexp(srs, scalars)
 
     def commit_sparse(self, coeffs: torch.Tensor, basis, density, skip: int = 0):
         """R1CS-style sparse commit (the reference prover's DensityTracker
@@ -57,5 +63,7 @@ class CommitPipeline:
         ``density`` (a DensityTracker or FullDensity over the coefficient
         slots) touches, with bases read from offset ``skip``, go to the
         MSM.  Returns the commitment, a Jacobian point with batch shape (1,)."""
-        scalars = self.fr.from_mont(coeffs)
-        return self.msm.multiexp(*compact_by_density(density, basis, scalars, skip=skip))
+        with phase("commit", curve=self.spec.name, n=coeffs.shape[0], basis="sparse"):
+            with phase("from_mont"):
+                scalars = self.fr.from_mont(coeffs)
+            return self.msm.multiexp(*compact_by_density(density, basis, scalars, skip=skip))
