@@ -662,8 +662,8 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     from tpu_ec_torch.ops.ec_fft import EcFftKernel
     from tpu_ec_torch.ops.msm import SCALAR_BITS, MultiexpKernel, make_digits
     from tpu_ec_torch.ops.autotune import tuned_window
-    from tpu_ec_torch.ops.msm_scan import (_fused_add, _unfuse, bucket_tail, default_window_size_scan, scan_buckets,
-                                           scan_round, sorted_rows)
+    from tpu_ec_torch.ops.msm_scan import (_shifted_add, _unfuse, bucket_tail, default_window_size_scan, scan_buckets,
+                                           scan_keep, sorted_rows)
     from tpu_ec_torch.ops.pipeline import CommitPipeline
     from tpu_ec_torch.utils.fp2_probe import sass_sizes
 
@@ -750,27 +750,29 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     # K3's Fq2 add at the main path's shape: round 0 of the segmented scan,
     # the fused (W, m, 3 L2) block of the path's own sorted rows, each added
     # to the row before it unless kept (keep, out=, column views of row
-    # stride 3 L2), against the plain version in chunks of 2^16 rows (its
-    # temporaries: ~125 KB a row, as measured on the CPU)
+    # stride 3 L2, the partner an offset view of the same rows), against the
+    # plain version in chunks of 2^16 rows (its temporaries: ~125 KB a row,
+    # as measured on the CPU); flat row 0 is kept, a copy
     key, data = sorted_rows(ops, pts, dig)
-    partner, keep = scan_round(data, key, 1)
+    keep = scan_keep(key, 1)
     del key
-    run_r0 = lambda: _fused_add(ops, data, partner, L2, keep=keep)
+    run_r0 = lambda: _shifted_add(ops, data, 1, keep, L2)
     r0_ms = cuda_ms(run_r0)
     got = run_r0().view(-1, 3 * L2)
-    a_rows, b_rows, k_rows = data.view(-1, 3 * L2), partner.view(-1, 3 * L2), keep.reshape(-1)
-    bad = err = 0
-    r0_plain = 0.0
-    for lo in range(0, a_rows.shape[0], 1 << 16):
-        sl = slice(lo, lo + (1 << 16))
-        want, t = cuda_ms_once(lambda: point_op_plain(
-            BLS12_381_FQ, "add", [*_unfuse(a_rows[sl], L2, 3), *_unfuse(b_rows[sl], L2, 3)], k_rows[sl], ext=2))
-        r0_plain += t
-        b_, e_ = mismatch(_unfuse(got[sl], L2, 3), want)
-        bad, err = bad + b_, max(err, e_)
-    z_nonzero = lambda rows: (rows[:, 2 * L2 :] != 0).any(-1)
-    adding = int((~k_rows & z_nonzero(a_rows) & z_nonzero(b_rows)).sum())
+    a_rows, k_rows = data.view(-1, 3 * L2), keep.reshape(-1)
     r0_rows = a_rows.shape[0]
+    bad, err = mismatch(got[:1], a_rows[:1])
+    r0_plain = 0.0
+    for lo in range(1, r0_rows, 1 << 16):
+        hi = min(lo + (1 << 16), r0_rows)
+        want, t = cuda_ms_once(lambda: point_op_plain(
+            BLS12_381_FQ, "add", [*_unfuse(a_rows[lo:hi], L2, 3), *_unfuse(a_rows[lo - 1 : hi - 1], L2, 3)],
+            k_rows[lo:hi], ext=2))
+        r0_plain += t
+        b_, e_ = mismatch(_unfuse(got[lo:hi], L2, 3), want)
+        bad, err = bad + b_, max(err, e_)
+    z_nonzero = (a_rows[:, 2 * L2 :] != 0).any(-1)
+    adding = int((~k_rows[1:] & z_nonzero[1:] & z_nonzero[:-1]).sum())
     report.measured("point_fp2", ms=r0_ms, plain_ms=r0_plain, err=err, nbytes=r0_rows * (9 * L2 * 4 + 1),
                     imads=adding * FP2_PRODUCTS["add"] * imad12)
     print(f"K3 add fp2 at the main path's scan round 0 {tuple(data.shape)} keep + out=: mismatches {bad}, kernel "
@@ -781,7 +783,7 @@ def phase_g2(log_n: int, dev, report, check, card: str, lat: dict, imad_rate: fl
     print(f"K3 add fp2 scan round 0: {r0_ms:.4f} ms, bound {b_ms:.4f} ms ({adding} adding rows of {r0_rows} x 43 Fq "
           f"products x {imad12} IMADs; {report.rows['point_fp2']['bound_by']}), ms / bound {r0_ms / b_ms:.2f} "
           f"| {card}", flush=True)
-    del data, partner, keep, got, a_rows, b_rows, k_rows, want
+    del data, keep, got, a_rows, k_rows, z_nonzero, want
 
     # the Horner at the main path's own window sums (the first chunk's)
     tri = bucket_tail(ops, scan_buckets(ops, pts, dig, half=half), half)

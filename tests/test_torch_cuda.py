@@ -969,6 +969,29 @@ def test_g2_point_kernel_scan_views(cuda, curve, offset):
     assert torch.equal(dst[:, offset:], torch.cat(want, dim=1))
 
 
+@pytest.mark.parametrize("curve", ["BLS12_381_G1", *G2_CURVES])
+def test_shifted_add_offset_views(cuda, curve):
+    """``_shifted_add`` as the MSM engines' rounds call it: over a (3, 45,
+    3L) block, the partner flat row i - h of the same block (column views,
+    out= the new block's rows past h), == the plain add of the block and
+    its rolled copy, keep set below h and on every third row."""
+    from tpu_ec_torch import curves
+    from tpu_ec_torch.ops.msm_scan import _shifted_add, _unfuse
+
+    spec = getattr(curves, curve)
+    ops = PointOps(spec, cuda)
+    L = ops.width
+    P, Q, _ = _g2_edge_rows(ops, 45)
+    rows = torch.cat([torch.cat(P, dim=1), torch.cat(Q, dim=1), torch.cat(P, dim=1).flip(0)])
+    data = rows.reshape(3, 45, 3 * L)
+    for h in (1, 2, 4, 16, 32):
+        keep = (torch.arange(45, device=cuda) % 3 == 0).expand(3, 45).clone()
+        keep[:, :h] = True
+        want = point_op_plain(spec.base, "add", [*_unfuse(data, L, 3), *_unfuse(torch.roll(data, h, 1), L, 3)],
+                              keep, ext=spec.ext)
+        assert torch.equal(_shifted_add(ops, data, h, keep, L), torch.cat(want, dim=-1)), h
+
+
 @pytest.mark.parametrize("curve", G2_CURVES)
 def test_g2_chains_odd_tiles(cuda, curve):
     """The Fq2 chain entries at tile counts that leave a warp's second tile

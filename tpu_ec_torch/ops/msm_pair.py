@@ -16,7 +16,9 @@ PyTorch counterpart of ``tpu_ec/ops/msm_pair.py`` and of the flat engine of
      rows (#boundary pairs < #live runs), packed by a monotone masked
      gather.  Every round halves the width;
   3. finish: all spills and the last survivor, stably re-sorted, folded by
-     a strided segmented scan that keeps each run's last entry;
+     a strided segmented scan that keeps each run's last entry (its rounds
+     read the row sh before through an offset view of the same block,
+     ``ops/msm_scan.py::_shifted_add``);
   4. the unique survivors scatter into a (C, half + 2)-slot bucket array,
      then the triangular tails (``ops/msm_scan.py::bucket_tail``) and the
      Horner window combine, one K3 tile of lanes a chunk.
@@ -37,7 +39,7 @@ from ..curves.point import PointOps
 from ..kernels.point import horner
 from ..utils.timer import phase
 from .msm import SCALAR_BITS, make_digits
-from .msm_scan import _fuse, _unfuse, bucket_tail
+from .msm_scan import _fuse, _shifted_add, _unfuse, bucket_tail, scan_keep
 
 SENT = torch.iinfo(torch.int32).max
 
@@ -105,15 +107,9 @@ def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
     (<= 2^max_run_log); log-depth shifted adds fold each run into its LAST
     entry (Hillis-Steele induction).  Returns (key, data) with non-last
     entries keyed SENT."""
-    L = ops.L
     for r in range(max_run_log):
         sh = 1 << r
-        k_sh = torch.cat([torch.full_like(key[:, :sh], SENT), key[:, :-sh]], dim=1)
-        d_sh = torch.cat([torch.zeros_like(data[:, :sh]), data[:, :-sh]], dim=1)
-        keep = (key != k_sh) | (key == SENT)
-        added = torch.empty_like(data)
-        ops.add(_unfuse(data, L, 3), _unfuse(d_sh, L, 3), keep=keep, out=added)
-        data = added
+        data = _shifted_add(ops, data, sh, scan_keep(key, sh) | (key == SENT), ops.L)
     nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], SENT)], dim=1)
     is_last = (key != nxt) & (key != SENT)
     return torch.where(is_last, key, SENT), data

@@ -13,6 +13,10 @@ and for a batch all chunks, in one tensor):
      ``masked_tree_sum``; every engine's tail is ``bucket_tail``);
   3. the Horner window combine (kernel K3, one tile of lanes a chunk).
 
+Every shifted round here and in the pair engine's finish is
+:func:`_shifted_add`: the row h before is read through an offset view of
+the same contiguous block, never from a shifted copy of it.
+
 It does ~log2(n) times the pair engine's adds; ``tpu_ec`` built it for its
 short XLA compile, and its "auto" runs G2 here.  A coordinate is
 ``ops.width`` = ext * L half-limbs (Fq2's c0 then c1 on G2), so fused blocks
@@ -94,13 +98,31 @@ def sorted_rows(ops: PointOps, points, digits_t: torch.Tensor):
     return key, torch.cat(ops.to_jacobian((rows[..., :L], rows[..., L:])), dim=-1)
 
 
-def scan_round(data: torch.Tensor, key: torch.Tensor, h: int):
-    """The operands of the scan's round with stride h: each row's partner,
-    the row h before it, and ``keep``, set where the keys differ or the row
-    is below h (there the row stays as it is)."""
-    iota = torch.arange(key.shape[-1], device=key.device)
-    same = (key == torch.roll(key, h, dims=1)) & (iota >= h)
-    return torch.roll(data, h, dims=1), ~same
+def scan_keep(key: torch.Tensor, h: int) -> torch.Tensor:
+    """``keep`` of the scan's round with stride h over (..., n) keys: set
+    where a row's key differs from the key h rows before it, and at every
+    row below h (there the row stays as it is)."""
+    keep = torch.ones_like(key, dtype=torch.bool)
+    keep[..., h:] = key[..., h:] != key[..., :-h]
+    return keep
+
+
+def _shifted_add(ops: PointOps, data: torch.Tensor, h: int, keep: torch.Tensor, L: int):
+    """One Hillis-Steele round of stride h along axis -2 of a fused
+    (..., s, 3L) block, into a new block: where(keep, row, row + the row h
+    before it).  ``keep`` (bool, (..., s)) must be set at every row below h
+    of its segment (window, chunk).
+
+    The partner is flat row i - h of the same block, an offset view: no
+    shifted copy is made.  For a row below h that row lies in the previous
+    segment, and ``keep`` discards it.  The first h flat rows are copied,
+    the rest are one K3 launch; the views overlap, but only as inputs."""
+    C = data.shape[-1]
+    flat = data.reshape(-1, C)
+    out = torch.empty_like(flat)
+    out[:h] = flat[:h]
+    ops.add(_unfuse(flat[h:], L, 3), _unfuse(flat[:-h], L, 3), keep=keep.reshape(-1)[h:], out=out[h:])
+    return out.view(data.shape)
 
 
 def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
@@ -114,9 +136,7 @@ def scan_buckets(ops: PointOps, points, digits_t: torch.Tensor, *, half: int):
         key, data = sorted_rows(ops, points, digits_t)
     for r in range(max(0, (n - 1).bit_length())):
         with phase("msm/scan/round"):
-            partner, keep = scan_round(data, key, 1 << r)
-            data = _fused_add(ops, data, partner, ops.width, keep=keep)
-            del partner
+            data = _shifted_add(ops, data, 1 << r, scan_keep(key, 1 << r), ops.width)
 
     with phase("msm/scan/scatter"):
         nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], -1)], dim=1)
@@ -133,8 +153,7 @@ def masked_prefix_scan_add(ops: PointOps, x: torch.Tensor, L: int, width: int):
     iota = torch.arange(width, device=x.device)
     for r in range(max(0, (width - 1).bit_length())):
         h = 1 << r
-        keep = (iota < h).expand(x.shape[:-1])
-        x = _fused_add(ops, x, torch.roll(x, h, dims=-2), L, keep=keep)
+        x = _shifted_add(ops, x, h, (iota < h).expand(x.shape[:-1]), L)
     return x
 
 

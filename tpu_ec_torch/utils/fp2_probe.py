@@ -296,7 +296,7 @@ def main() -> int:
     from tpu_ec_torch.native import native_curve
     from tpu_ec_torch.ops.ec_fft import EcFftKernel
     from tpu_ec_torch.ops.msm import SCALAR_BITS, MultiexpKernel, make_digits
-    from tpu_ec_torch.ops.msm_scan import _fused_add, default_window_size_scan, scan_round, sorted_rows
+    from tpu_ec_torch.ops.msm_scan import _shifted_add, default_window_size_scan, scan_keep, sorted_rows
 
     card = card_line()
     dev = torch.device("cuda")
@@ -392,10 +392,10 @@ def main() -> int:
         sc = torch.cat([scal, scal.new_zeros((n, 1))], dim=1)
         dig = make_digits(sc, w, -(-SCALAR_BITS // w), True).T.unsqueeze(0)
         key, data = sorted_rows(ops, tuple(c.unsqueeze(0) for c in bases), dig)
-        partner, keep = scan_round(data, key, 1)
+        keep = scan_keep(key, 1)
         del key, dig, bases
         L2 = ops.width
-        run = lambda: _fused_add(ops, data, partner, L2, keep=keep)
+        run = lambda: _shifted_add(ops, data, 1, keep, L2)
         want = run()
         res["round0"] = {"shape": list(data.shape), "library_ms": cuda_ms(run)}
         print(f"scan round 0 {tuple(data.shape)}: the checkout's library {res['round0']['library_ms']:.4f} ms "
@@ -414,7 +414,7 @@ def main() -> int:
                 del got
         finally:
             kpoint.load = load
-        del data, partner, keep, want
+        del data, keep, want
 
     stage_vars = [k for k, v in built.items() if v[1] == "g2_ec_fft_stage.cu"]
     if stage_vars:
