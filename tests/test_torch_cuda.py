@@ -148,6 +148,42 @@ def test_chunked_route_matches_unchunked(cuda, monkeypatch):
     assert ntt_digit.get_digit_domain(spec, 20, False, 8).inter[(20, 13)] == "factored"
 
 
+@pytest.mark.parametrize("m,N", [(128, 64), (4, 100)], ids=["level0_2p20", "padded"])
+def test_leaf_mm_k_major_matches_int64(cuda, m, N):
+    """The leaf GEMM (``torch._int_mm`` on the K-major operand, a TN
+    product) against the int64 product: at the 2^20 plan's level-0 leaf
+    (rows and K 37 * 128) with a small N, and at a leaf of 4 whose K and N
+    ``_leaf_rhs`` pads to multiples of 8."""
+    from tpu_ec_torch.ops import ntt_digit
+
+    rng = np.random.default_rng(m + N)
+    A2 = torch.as_tensor(rng.integers(0, 128, (37 * m, m * 37), dtype=np.int8)).to(cuda)
+    xk, region = ntt_digit._leaf_rhs(N, m * 37, cuda)
+    region.copy_(torch.as_tensor(rng.integers(0, 128, (N, m * 37), dtype=np.int8)))
+    before = ntt_digit.leaf_mm_counts()
+    got = ntt_digit._leaf_mm(A2, xk, N)
+    assert ntt_digit.leaf_mm_counts()["k_major"] == before["k_major"] + 1
+    want = A2.cpu().to(torch.int64) @ region.cpu().t().to(torch.int64)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().to(torch.int64), want)
+
+
+def test_radix_fft_2p20_reads_k_major_operands(cuda):
+    """A 2^20 ``FftKernel.radix_fft`` (plan [7, 7, 6]) runs three leaf GEMMs,
+    each on a K-major operand."""
+    from tpu_ec_torch.ops import ntt_digit
+    from tpu_ec_torch.ops.ntt import FftKernel
+
+    spec = tfp.BLS12_381_FR
+    x = torch.as_tensor(_field(spec, 1 << 20, 15)).to(cuda, torch.int32)
+    k = FftKernel(spec, cuda)
+    k.radix_fft(x)  # the tables
+    before = ntt_digit.leaf_mm_counts()
+    k.radix_fft(x)
+    after = ntt_digit.leaf_mm_counts()
+    assert after["k_major"] == before["k_major"] + 3
+    assert after["n_major"] == 0
+
+
 def _points(ops, n):
     """k*G for k = 1..n (affine), and Jacobian forms with z != 1."""
     g = ops.from_affine_ints([(ops.spec.gen_x, ops.spec.gen_y)])

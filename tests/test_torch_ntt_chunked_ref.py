@@ -95,3 +95,23 @@ def test_chunk_spans_under_the_profiler(chunked):
     assert counts == {"ntt/chunk/seeds": 1, "ntt/chunk/row": 4, "ntt/chunk/leaf_mm": 8,
                       "ntt/chunk/inter_twiddle": 8}
     assert {up for _, up in spans} == {"ntt/chunked_level"}
+
+
+@pytest.mark.parametrize("chunked", [4], indirect=True)
+@pytest.mark.parametrize("B", [2, 3])
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+def test_chunked_batch_matches_the_blocked_reference(chunked, B, inverse):
+    """``digit_ntt_planes_batch`` of B transforms of 2^12 on the chunked
+    route (its first operand split from limb planes, words of B digits or
+    plain bytes in its first transposing copy): each transform equals the
+    reference's, and each of its 12 leaf GEMMs (two levels of 4 slices, a
+    final pass of 4) reads a K-major operand."""
+    log_n = 12
+    xs = [_inputs(log_n, 50 * B + b) for b in range(B)]
+    xpb = torch.stack([x.T for x in xs], dim=-1)  # (16, n, B) planes
+    before = tnd.leaf_mm_counts()
+    got = tnd.digit_ntt_planes_batch(tfp.BLS12_381_FR, xpb, inverse, leaf=LEAF)
+    after = tnd.leaf_mm_counts()
+    assert after["k_major"] - before["k_major"] == 12 and after["n_major"] == before["n_major"]
+    for b, x in enumerate(xs):
+        assert torch.equal(got[:, :, b].T, _reference(x, log_n, inverse))

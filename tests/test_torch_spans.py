@@ -119,7 +119,7 @@ PAIR = ["msm/digits", "msm/pair/rows", "msm/pair/round", "msm/pair/survivors", "
 # entry -> (entry span, its stage spans, {a stage span: its count}); the batch:
 # two slabs of two chunks of 4 points, 8 rows and 3 pair rounds a slab
 CASES = {
-    "commit": ("commit", ["ntt", "from_mont", "msm", "ntt/split_rows", "ntt/leaf_rhs", "ntt/leaf_mm",
+    "commit": ("commit", ["ntt", "from_mont", "msm", "ntt/split_rows", "ntt/leaf_mm",
                           "ntt/inter_twiddle", "ntt/transpose", *PAIR],
                {"ntt/transpose": 1, "ntt/leaf_mm": 2, "msm/pair/round": 4}),
     "msm_pair": ("msm", PAIR, {"msm/pair/round": 4, "msm/horner": 1}),

@@ -28,7 +28,17 @@ value mod p) hands the final pass int8 digits, K2's int8 entry.  A module
 constant patched at run time takes effect for the domains built after it.
 
 The leaf GEMM is ``torch._int_mm`` (int8 tensor cores) on CUDA and an int64
-matmul on the CPU (int8 ``torch.mm`` wraps there).
+matmul on the CPU (int8 ``torch.mm`` wraps there).  Its data operand is
+K-major: a contiguous (N, K) matrix, GEMM column n = (j1, M) holding the
+m * d_in digits K = (j2, d) of its leaf inputs side by side, passed to
+``_int_mm`` as its ``.t()``.  cuBLASLt then sees a TN product, the layout
+its int8 IMMA kernels take; a row-major (K, N) operand makes it an NN
+product, which only CUTLASS's SM80 WMMA fallback runs (5.0-6.5x slower at
+the digit NTT's shapes on an H100, ``utils/leaf_gemm_probe.py``).  K2
+writes digit planes (d, ...), so each level boundary is one transposing
+copy from K2's planes into the next level's K-major operand
+(``_to_kmajor``); the first level's operand is split from the input
+into that layout (``_split_first``).
 """
 
 from __future__ import annotations
@@ -274,43 +284,105 @@ def split_digits_rows(v16: torch.Tensor, d_out: int) -> torch.Tensor:
     return out
 
 
-def _split_rows(x: torch.Tensor, d_out: int, block: int = 1 << 22) -> torch.Tensor:
-    """(n, L16) limb rows -> (d_out, n) int8 digits, through a transposed
-    copy of one block of rows at a time (not of all n)."""
-    n = x.shape[0]
-    out = torch.empty((d_out, n), dtype=torch.int8, device=x.device)
-    for s in range(0, n, block):
-        out[:, s : s + block] = split_digits_rows(x[s : s + block].T.contiguous(), d_out)
-    return out
+# the transposing copies move words of this many digits where the planes'
+# innermost axis allows: the word transpose moves 1/g of the elements a
+# byte transpose would, and the regrouping of each word's g digits stays
+# inside one row group
+_WORDS = ((8, torch.int64), (4, torch.int32), (2, torch.int16))
+# an unchunked level's transposing copy runs in slices of k2 of at most this
+# many bytes (2^26: 16 slices of its 2.3 GiB of digits)
+_COPY_BYTES = 1 << 28
 
 
-def _leaf_rhs(x: torch.Tensor) -> torch.Tensor:
-    """The leaf GEMM's right operand of x (d_in, m, M) int8 digits: the
-    (m * d_in, M) matrix, int64 on the CPU; on CUDA int8 with K and N
-    padded to multiples of 8, as ``torch._int_mm`` wants."""
-    d_in, m, M = x.shape
-    xk = x.permute(1, 0, 2).reshape(m * d_in, M)
-    if x.device.type == "cpu":
-        return xk.to(torch.int64)
-    pad_k, pad_n = -(m * d_in) % 8, -M % 8
-    if pad_k or pad_n:
-        xk = torch.nn.functional.pad(xk, (0, pad_n, 0, pad_k))
-    return xk.contiguous()
+def _to_kmajor(y: torch.Tensor, sizes, order, out: torch.Tensor) -> None:
+    """Copy int8 digit planes y, (d, *sizes) with the axes after d
+    contiguous, into ``out``, laid out (*(sizes[o] for o in order), d): the
+    digits of each position side by side, as the leaf GEMM's K-major
+    operand holds them.  ``out`` may be a strided view (a slice of an
+    operand).
+
+    A byte transpose with d reads each byte from another plane.  Instead
+    the planes' innermost axis is read as words of g digits (g = 8, 4 or
+    2, the largest that divides it; plain bytes otherwise), the words are
+    transposed with d, and a second copy, local to the g rows of a word,
+    moves each word's g digits to their rows."""
+    d = y.shape[0]
+    keep = [i for i, s in enumerate(sizes) if s > 1]
+    sizes = [sizes[i] for i in keep]
+    order = [keep.index(o) for o in order if o in keep]
+    y = y.view(d, *sizes)
+    out = out.view(*(sizes[o] for o in order), d)
+    last = len(sizes) - 1
+    g, word = next(((g, w) for g, w in _WORDS if sizes and sizes[last] % g == 0), (1, None))
+    if g == 1:
+        out.copy_(y.permute(*(o + 1 for o in order), 0))
+        return
+    t = y.view(word).permute(*(o + 1 for o in order), 0).contiguous().view(torch.int8)
+    p = order.index(last)
+    shape = [sizes[o] for o in order]
+    shape[p] //= g
+    t = t.view(*shape, d, g)
+    nd = len(shape)
+    out = out.view(*shape[: p + 1], g, *shape[p + 1 :], d)
+    out.copy_(t.permute(*range(p + 1), nd + 1, *range(p + 1, nd + 1)))
 
 
-def _leaf_mm(A2: torch.Tensor, xk: torch.Tensor, M: int) -> torch.Tensor:
-    """Rows of the leaf matrix A2 (rows, m * d_in) times ``_leaf_rhs``'s
-    operand: (rows, M) raw columns, int32 on CUDA and int64 on the CPU."""
+def _leaf_rhs(N: int, K: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The leaf GEMM's data operand, K-major: a contiguous (N, K) int8
+    matrix whose row n holds GEMM column n's K = m * d_in digits (j2, d),
+    so that ``torch._int_mm`` gets it as ``.t()``, a TN product, the layout
+    of cuBLASLt's int8 IMMA kernels.  On CUDA N and K are padded to
+    multiples of 8 with zeros, as ``_int_mm`` wants.  Returns (the operand
+    to hand ``_leaf_mm``, its (N, K) region to fill)."""
+    Np, Kp = (N, K) if device.type == "cpu" else (N + (-N % 8), K + (-K % 8))
+    buf = (torch.empty if (Np, Kp) == (N, K) else torch.zeros)((Np, Kp), dtype=torch.int8, device=device)
+    return buf, buf[:N, :K]
+
+
+def _split_first(v16: torch.Tensor, out: torch.Tensor, d: int, block: int = 1 << 22) -> None:
+    """Limb values v16, (L16, n2, n1, M) with n = (j2, j1), any strides ->
+    the first level's K-major operand ``out``, (n1, M, n2, d) digits.  In
+    blocks of j1 with every j2 and M, so that no digit planes of the whole
+    input are held: a block is split into digit planes and copied digits
+    innermost (``_to_kmajor``).  Limbs innermost (rows) go through one
+    transposed int32 copy of the block first, not a strided read a digit."""
+    L16, n2, n1, M = v16.shape
+    b = max(1, min(n1, block // (n2 * M)))
+    for t in range(0, n1, b):
+        blk = v16[:, :, t : t + b]
+        if blk.stride(0) == 1:
+            blk = blk.contiguous()
+        planes = split_digits_rows(blk, d)  # (d, j2, j1, M)
+        _to_kmajor(planes, planes.shape[1:], (1, 2, 0), out[t : t + b])
+
+
+# leaf GEMMs so far by the layout of the data operand the product reads:
+# "k_major" (each column's K digits contiguous: TN on CUDA) or "n_major".
+# Not a hand kernel's launches, so not in kernels.launch_counters()
+_LEAF_MM = {"k_major": 0, "n_major": 0}
+
+
+def leaf_mm_counts() -> dict:
+    """{operand layout: leaf GEMMs so far}, on every device."""
+    return dict(_LEAF_MM)
+
+
+def _leaf_mm(A2: torch.Tensor, xk: torch.Tensor, N: int) -> torch.Tensor:
+    """Rows of the leaf matrix A2 (rows, m * d_in) times the K-major operand
+    ``xk`` of ``_leaf_rhs`` (or a block of its rows): (rows, N) raw columns,
+    int32 on CUDA (``torch._int_mm(A2, xk.t())``, a TN product) and int64 on
+    the CPU."""
     rows, K = A2.shape
+    _LEAF_MM["k_major" if xk.stride(1) == 1 else "n_major"] += 1
     if xk.device.type == "cpu":
-        return A2.to(torch.int64) @ xk
+        return A2.to(torch.int64) @ xk.t().to(torch.int64)
     # _int_mm wants more than 16 rows and K, N multiples of 8
-    if xk.shape[0] != K:
-        A2 = torch.nn.functional.pad(A2, (0, xk.shape[0] - K))
+    if xk.shape[1] != K:
+        A2 = torch.nn.functional.pad(A2, (0, xk.shape[1] - K))
     if rows <= 16:
         A2 = torch.nn.functional.pad(A2, (0, 0, 0, 17 - rows))
-    out = torch._int_mm(A2.contiguous(), xk)
-    return out if out.shape == (rows, M) else out[:rows, :M].contiguous()
+    out = torch._int_mm(A2.contiguous(), xk.t())
+    return out if out.shape == (rows, N) else out[:rows, :N].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -419,17 +491,18 @@ def digit_consts(dom: DigitDomain, device) -> dict:
                 "c288": _limbs(_c288(dom.spec), device)}
 
 
-def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int) -> torch.Tensor:
+def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int, nxt: torch.Tensor) -> None:
     """One four-step level in nc slices of the leaf-output axis k2, so the
     full raw-column tensor never exists (tpu_ec's ``_chunked_level``).
-    ``xk`` is the level's GEMM operand, made once; slice a's rows of A2
-    (row e * n2 + k2, strided) are gathered once into a small block.  The
+    ``xk`` is the level's K-major GEMM operand; slice a's rows of A2 (row
+    e * n2 + k2, strided) are gathered once into a small block.  The
     slice's (c, n1) twiddle block is sliced from a materialised table, or
     with factored seeds (a dict) synthesised with K1 as mont(base,
     w^(a j1)): base rows 0 .. c - 1 by doubling from the seed row (log2(c)
     launches a level), the row of powers as a product of the seeds of a's
-    bits (popcount(a / c) launches a slice, none for slice 0).  Returns
-    (d_in, n2 * n1 * M) int8 digits."""
+    bits (popcount(a / c) launches a slice, none for slice 0).  Each
+    slice's digits go straight into its rows of the next level's operand,
+    ``nxt`` viewed (n1', n2, M, n2', d_in)."""
     spec = dom.spec
     L = spec.n_limbs
     nc = min(dom.chunk_count, n2)
@@ -438,7 +511,7 @@ def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int) -> tor
     N = n1 * M
     d_out = A2.shape[0] // n2
     A3 = A2.view(d_out, n2, A2.shape[1])
-    y = torch.empty((dom.d_in, n2, N), dtype=torch.int8, device=xk.device)
+    n1p, n2p = nxt.shape[0], nxt.shape[3]
     factored = isinstance(T, dict)
     if factored:
         with phase("ntt/chunk/seeds"):
@@ -467,41 +540,45 @@ def _chunked_level(dom: DigitDomain, A2, xk, T, n1: int, n2: int, M: int) -> tor
         with phase("ntt/chunk/inter_twiddle"):
             y_c = inter_twiddle(spec, cols.view(d_out, c * N), tchunk.reshape(c * n1, L), t_rep=M)
         del cols
-        y[:, a : a + c] = y_c.view(dom.d_in, c, N)
-    return y.view(dom.d_in, n2 * N)
+        with phase("ntt/chunk/transpose"):
+            _to_kmajor(y_c, (c, n2p, n1p, M), (2, 0, 3, 1), nxt[:, a : a + c])
+        del y_c
 
 
-def _transform(dom: DigitDomain, consts: dict, digits, out_rows: bool = False) -> torch.Tensor:
-    """``digits()`` makes x: (d_in, n, M) int8 digit planes (values < 2^256,
-    R-form) of M interleaved transforms, which this call alone holds: each
-    level frees its input, and its GEMM operand, before the next (at 2^27
-    each is 4.6 GiB).  Returns the canonical (16, n * M) planes, or with
+def _transform(dom: DigitDomain, consts: dict, first, M: int, out_rows: bool = False) -> torch.Tensor:
+    """``first(n2, n1)`` makes the first level's K-major GEMM operand (the
+    ``_leaf_rhs`` of N = n1 * M columns, K = n2 * d_in) of M interleaved
+    transforms of n = n2 * n1 (values < 2^256, R-form), which this call
+    alone holds: each level frees its operand before the next (at 2^27 each
+    is 4.6 GiB).  Returns the canonical (16, n * M) planes, or with
     ``out_rows`` (n * M, 16) rows.
 
     Each level of the plan runs the leaf NTT over j2 as one GEMM batched
-    over (j1, M), K2 with the Bailey twiddle (column i's twiddle at i // M)
-    and a transpose; the size-m recursion of tpu_ec's ``_rec`` is this loop,
-    since a level's output needs only a reshape.  The last GEMM's raw
-    columns go to the final K2; a chunked transform runs that GEMM in
-    slices of M, each followed by K2 with T = 2^288, and the final K2 reads
-    their int8 digits."""
+    over (j1, M), TN on its K-major operand, and K2 with the Bailey twiddle
+    (column i's twiddle at i // M); one transposing copy takes K2's digit
+    planes (d, k2, j2', j1', M) to the next level's operand, columns
+    (j1', k2, M) and K = (j2', d), the size-n1 transforms batched over
+    (k2, M).  The size-m recursion of tpu_ec's ``_rec`` is this loop.  The
+    last GEMM's raw columns go to the final K2; a chunked transform runs
+    that GEMM in slices of M, each a block of rows of the operand, followed
+    by K2 with T = 2^288, and the final K2 reads their int8 digits."""
     spec = dom.spec
     A, inter = consts["A"], consts["inter"]
-    x = digits()
-    d_in, n, M = x.shape
-    total = n * M
+    d_in, plan = dom.d_in, dom.plan
+    total = (1 << dom.log_n) * M
     chunked = total >= dom.chunk_min
     log_m = dom.log_n
-    for log_n2 in dom.plan[:-1]:
+    xk = first(1 << plan[0], 1 << (log_m - plan[0]))
+    device = xk.device
+    for i, log_n2 in enumerate(plan[:-1]):
         log_n1 = log_m - log_n2
         n1, n2 = 1 << log_n1, 1 << log_n2
-        with phase("ntt/leaf_rhs"):
-            xk = _leaf_rhs(x.view(d_in, n2, n1 * M))
-        del x
+        n2p, n1p = 1 << plan[i + 1], 1 << (log_n1 - plan[i + 1])
         T = inter[(log_m, log_n1)]
         if chunked or isinstance(T, dict):
+            nxt, region = _leaf_rhs(n1p * n2 * M, n2p * d_in, device)
             with phase("ntt/chunked_level"):
-                y = _chunked_level(dom, A[log_n2], xk, T, n1, n2, M)
+                _chunked_level(dom, A[log_n2], xk, T, n1, n2, M, region.view(n1p, n2, M, n2p, d_in))
             del xk
         else:
             with phase("ntt/leaf_mm"):
@@ -510,29 +587,32 @@ def _transform(dom: DigitDomain, consts: dict, digits, out_rows: bool = False) -
             with phase("ntt/inter_twiddle"):
                 y = inter_twiddle(spec, cols.view(-1, total), T.view(n2 * n1, -1), t_rep=M)
             del cols
-        # transpose and go on with the size-n1 transforms, batched over (k2, M)
-        with phase("ntt/transpose"):
-            x = y.view(d_in, n2, n1, M).transpose(1, 2).contiguous().view(d_in, n1, n2 * M)
-        del y
+            with phase("ntt/transpose"):
+                nxt, region = _leaf_rhs(n1p * n2 * M, n2p * d_in, device)
+                dst = region.view(n1p, n2, M, n2p, d_in)
+                # in slices of k2 of at most _COPY_BYTES, each copy's word transpose a temporary of its size
+                c = n2 >> min(log_n2, ((y.numel() - 1) // _COPY_BYTES).bit_length())
+                for a in range(0, n2, c):
+                    _to_kmajor(y.view(d_in, n2, -1)[:, a : a + c], (c, n2p, n1p, M), (2, 0, 3, 1), dst[:, a : a + c])
+            del y, dst
+        xk = nxt
+        del nxt, region  # xk alone holds the operand, so the final pass frees it
         log_m, M = log_n1, n2 * M
     m = 1 << log_m
     if chunked:
         nc = min(dom.chunk_count, M)
         mc = M // nc
-        out = torch.empty((d_in, m, M), dtype=torch.int8, device=x.device)
+        out = torch.empty((d_in, m, M), dtype=torch.int8, device=device)
         for ci in range(nc):
             s = slice(ci * mc, (ci + 1) * mc)
             with phase("ntt/leaf_mm"):
-                cols = _leaf_mm(A[log_m], _leaf_rhs(x[:, :, s]), mc)
+                cols = _leaf_mm(A[log_m], xk[s], mc)
             with phase("ntt/inter_twiddle"):
                 dig = inter_twiddle(spec, cols.view(-1, m * mc), consts["c288"], const_t=True)
             del cols
             out[:, :, s] = dig.view(d_in, m, mc)
-        del x
+        del xk
     else:
-        with phase("ntt/leaf_rhs"):
-            xk = _leaf_rhs(x)
-        del x
         with phase("ntt/leaf_mm"):
             out = _leaf_mm(A[log_m], xk, M)  # (d_out * m, M)
         del xk
@@ -562,13 +642,7 @@ def digit_ntt_planes(
     """Natural-order NTT bit-exact with ops.ntt.FftKernel.  Returns (L16, n)
     canonical Montgomery planes (< p) in the storage dtype."""
     L16, n = xp.shape
-    dom, consts = _prepare(spec, n, inverse, leaf, consts, xp.device)
-
-    def digits():
-        with phase("ntt/split_digits"):
-            return split_digits_rows(xp, dom.d_in).view(dom.d_in, n, 1)
-
-    return _transform(dom, consts, digits)
+    return digit_ntt_planes_batch(spec, xp.view(L16, n, 1), inverse, leaf=leaf, consts=consts).view(L16, n)
 
 
 def digit_ntt_rows(
@@ -586,11 +660,13 @@ def digit_ntt_rows(
     n = x.shape[0]
     dom, consts = _prepare(spec, n, inverse, leaf, consts, x.device)
 
-    def digits():
+    def first(n2, n1):
         with phase("ntt/split_rows"):
-            return _split_rows(x, dom.d_in).view(dom.d_in, n, 1)
+            xk, region = _leaf_rhs(n1, n2 * dom.d_in, x.device)
+            _split_first(x.view(n2, n1, 1, -1).permute(3, 0, 1, 2), region.view(n1, 1, n2, dom.d_in), dom.d_in)
+            return xk
 
-    return _transform(dom, consts, digits, out_rows=True)
+    return _transform(dom, consts, first, 1, out_rows=True)
 
 
 def digit_ntt_planes_batch(
@@ -610,8 +686,10 @@ def digit_ntt_planes_batch(
     L16, n, B = xpb.shape
     dom, consts = _prepare(spec, n, inverse, leaf, consts, xpb.device)
 
-    def digits():
+    def first(n2, n1):
         with phase("ntt/split_digits"):
-            return split_digits_rows(xpb, dom.d_in)
+            xk, region = _leaf_rhs(n1 * B, n2 * dom.d_in, xpb.device)
+            _split_first(xpb.view(L16, n2, n1, B), region.view(n1, B, n2, dom.d_in), dom.d_in)
+            return xk
 
-    return _transform(dom, consts, digits).view(L16, n, B)
+    return _transform(dom, consts, first, B).view(L16, n, B)
