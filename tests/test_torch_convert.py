@@ -63,16 +63,6 @@ def test_ints_roundtrip_and_range_check():
         limbs_to_torch(np.full((1, 16), 1 << 16, np.int64), "cpu")
 
 
-def test_measure_helpers():
-    from tpu_ec_torch.utils.measure import hard_sync, physically_possible, timeit
-
-    x = torch.arange(6)
-    hard_sync((x, [x * 2]))
-    assert timeit(lambda: x + 1, iters=2) >= 0.0
-    assert physically_possible(1 << 30, 1.0)  # 1 GiB/s
-    assert not physically_possible(1 << 40, 1e-3)  # 1 PiB/s: not a real sync
-
-
 def test_port_runs_without_jax():
     code = """
 import sys

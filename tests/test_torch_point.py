@@ -21,7 +21,7 @@ from tpu_ec_torch.convert import points_to_numpy, points_to_torch
 from tpu_ec_torch.curves import BLS12_381_G1, PointOps
 from tpu_ec_torch.errors import DeviceError
 from tpu_ec_torch.fields import params as tfp
-from tpu_ec_torch.kernels.point import horner, horner_plain, point_op
+from tpu_ec_torch.kernels.point import chain_tile, horner, horner_plain, point_op
 
 
 @pytest.fixture(scope="module")
@@ -154,3 +154,8 @@ def test_lazy_reduction_headroom(name):
     assert 4 * spec.modulus < 1 << (32 * nw)
     assert spec.r == 1 << (32 * nw)
 
+
+@pytest.mark.parametrize("ext", [0, 3])
+def test_chain_tile_rejects_ext(ext):
+    with pytest.raises(ValueError):
+        chain_tile(tfp.BN254_FQ, ext)

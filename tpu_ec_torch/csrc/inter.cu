@@ -49,9 +49,9 @@
 // computed once a block, so the grid is what fits on the card at once,
 // each block walking over tiles with two digit buffers (one tile a block:
 // 3.18 ms).  Tiles of 128 and 64 columns took 2.63 and 3.04 ms (NVIDIA
-// H100 80GB HBM3, 700.00 W; tpu_ec_torch/utils/inter_probe.py).  Loads and
-// stores are streaming (evict-first): nothing is read twice.  A ragged
-// last tile, or n not a multiple of 16, takes byte loads and stores.
+// H100 80GB HBM3, 700.00 W; tpu_ec_torch/utils/inter_probe.py at 2a4dbb4).
+// Loads and stores are streaming (evict-first): nothing is read twice.  A
+// ragged last tile, or n not a multiple of 16, takes byte loads and stores.
 //
 // The twiddle of column i is row i / t_rep of an (nt, 16) table, the rows
 // K1 writes (t_rep = the batch M of a four-step level, so no broadcast copy

@@ -8,15 +8,13 @@ and ``g2_*.cu`` on the templates of ``chain.cuh``), so that the widest
 instances build side by side.  The library's file name embeds a hash of the
 sources and flags; it lives in the gitignored build directory
 (``config.build_dir("kernels")``), beside the ``-Xptxas -v`` report of the
-build and each source's nvcc seconds.  Nothing here runs at import: the CPU
-tests import every module.
+build.  Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
-import json
 import os
 import shutil
 import subprocess
@@ -82,16 +80,9 @@ def ptxas_report() -> str:
         return f.read()
 
 
-def unit_seconds() -> dict:
-    """{source: seconds its nvcc process took} of the build."""
-    with open(library_path() + ".seconds.json") as f:
-        return json.load(f)
-
-
-def _compile(cmd: list) -> tuple[int, str, float]:
-    t0 = time.perf_counter()
+def _compile(cmd: list) -> tuple[int, str]:
     res = subprocess.run(cmd, capture_output=True, text=True)
-    return res.returncode, res.stderr, time.perf_counter() - t0
+    return res.returncode, res.stderr
 
 
 def build() -> float:
@@ -108,7 +99,7 @@ def build() -> float:
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         runs = list(pool.map(_compile, ([nvcc, *FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
                                         for src, obj in zip(SOURCES, objs))))
-    for src, (rc, err, _) in zip(SOURCES, runs):
+    for src, (rc, err) in zip(SOURCES, runs):
         if rc != 0:
             raise DeviceError(f"nvcc failed on {src} ({rc}):\n{err[-4000:]}")
     res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
@@ -117,9 +108,7 @@ def build() -> float:
     if res.returncode != 0:
         raise DeviceError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
     with open(out + ".ptxas.txt", "w") as f:
-        f.write("".join(err for _, err, _ in runs))
-    with open(out + ".seconds.json", "w") as f:
-        json.dump({src: round(secs, 1) for src, (_, _, secs) in zip(SOURCES, runs)}, f)
+        f.write("".join(err for _, err in runs))
     os.replace(tmp, out)
     return time.perf_counter() - t0
 

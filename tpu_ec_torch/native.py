@@ -1,8 +1,8 @@
 """Native C++ referee, loaded without JAX.
 
-``chip_smoke.py`` and the tests check the port against the repository's
-native C++ implementation (``native/src/ec_native.cpp``, unchanged), and
-use it to make 2^20 valid points fast.  ``tpu_ec.native`` imports jax
+The tests check the port against the repository's native C++
+implementation (``native/src/ec_native.cpp``, unchanged), and use it to
+make 2^20 valid points fast.  ``tpu_ec.native`` imports jax
 through ``tpu_ec/__init__.py``; this loader compiles the same source with
 g++ into the port's build directory (``config.build_dir("native")``), its
 file name keyed by a hash of source and flags.  Only the surface the port

@@ -34,8 +34,8 @@ m * d_in digits K = (j2, d) of its leaf inputs side by side, passed to
 ``_int_mm`` as its ``.t()``.  cuBLASLt then sees a TN product, the layout
 its int8 IMMA kernels take; a row-major (K, N) operand makes it an NN
 product, which only CUTLASS's SM80 WMMA fallback runs (5.0-6.5x slower at
-the digit NTT's shapes on an H100, ``utils/leaf_gemm_probe.py``).  K2
-writes digit planes (d, ...), so each level boundary is one transposing
+the digit NTT's shapes on an H100, ``utils/leaf_gemm_probe.py`` at 2a4dbb4).
+K2 writes digit planes (d, ...), so each level boundary is one transposing
 copy from K2's planes into the next level's K-major operand
 (``_to_kmajor``); the first level's operand is split from the input
 into that layout (``_split_first``).
@@ -65,7 +65,7 @@ WIDE_LIMBS = 18  # R' = 2^(16*18) = 2^288
 # the tensor's device.  On the card's machine the host numpy table
 # (inter_table288_np, numpy Montgomery on one thread) took 2.18 s at 2^16,
 # 8.68 s at 2^18, 33.00 s at 2^20 and 144.37 s at 2^22, and K1 built each
-# table in 1.6-4.2 ms (H100 80GB HBM3, 700 W; utils/table_times.py).
+# table in 1.6-4.2 ms (H100 80GB HBM3, 700 W; utils/table_times.py at 2a4dbb4).
 # tpu_ec's 2^22 weighed a TPU host's minutes; below 2^16 the tables stay
 # on the host and its disk cache, as tpu_ec's are
 _DEVICE_TABLE_MIN = 1 << 16
@@ -76,7 +76,7 @@ _DEVICE_TABLE_MIN = 1 << 16
 # digits out, beside a 4 GiB cached table a direction and the 4 GiB input
 # and output: on the card the unchunked 2^26 forward took 635.6 ms at
 # 13.25 GiB above what it holds, the chunked 791.3 ms at 11.08 GiB
-# (chip_smoke.py phase 4h; H100 80GB HBM3, 700 W), so 2^26 stays
+# (chip_smoke.py phase 4h at 2a4dbb4; H100 80GB HBM3, 700 W), so 2^26 stays
 # unchunked beside the commit's 12.9 GB of 2^26 G1 bases.  At 2^27 a level
 # doubles to ~27 GiB and the tables to 16 GiB for both directions; the
 # chunked 2^27 inverse took 1745.8 ms, its peak 13.5 GiB with its 8 GiB

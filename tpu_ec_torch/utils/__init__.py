@@ -1,1 +1,1 @@
-"""Measurement helpers."""
+"""The span timer, the host thread pool and the MSM window autotune."""
