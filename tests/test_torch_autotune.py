@@ -24,7 +24,7 @@ TABLE = {
     "_card": "a card, 700.00 W",
     "bls12_381_g1": {"pair": {"14": 10, "16": 11, "20": 14, "22": 16}, "scan": {"14": 11}},
     "bn254_g1": {"pair": {}},
-    "bls12_381_g2": {"scan": {"16": 12, "20": 15}},
+    "bls12_381_g2": {"pair": {"16": 12, "20": 13}, "scan": {"16": 12, "20": 15}},
 }
 
 
@@ -64,7 +64,7 @@ def test_missing_table_is_empty(tmp_path, monkeypatch):
 def test_committed_table_is_the_cards():
     """The table in the package names an NVIDIA card and holds, by engine,
     the rows its tool measures: G1 pair at 2^14 .. 2^22, G1 scan at 2^14,
-    G2 scan at 2^16 and 2^20."""
+    G2 pair and scan at 2^16 and 2^20."""
     tat._table.cache_clear()
     with open(tat._TABLE_PATH) as fh:
         tab = json.load(fh)
@@ -72,6 +72,7 @@ def test_committed_table_is_the_cards():
     assert sorted(tab["bls12_381_g1"]["pair"], key=int) == ["14", "16", "18", "20", "22"]
     assert sorted(tab["bls12_381_g1"]["scan"]) == ["14"]
     assert sorted(tab["bls12_381_g2"]["scan"], key=int) == ["16", "20"]
+    assert sorted(tab["bls12_381_g2"]["pair"], key=int) == ["16", "20"]
     for curve, engines in tab.items():
         if curve == "_card":
             continue
@@ -91,7 +92,8 @@ def _recorder(seen):
 
 
 @pytest.mark.parametrize("curve,method,log_n,table_w", [("bls12_381_g1", "pair", 16, 11),
-                                                        ("bls12_381_g2", "scan", 15, 12)])
+                                                        ("bls12_381_g2", "scan", 15, 12),
+                                                        ("bls12_381_g2", "pair", 15, 12)])
 def test_window_order(table, monkeypatch, curve, method, log_n, table_w):
     seen = []
     monkeypatch.setattr(msm_pair, "msm_pair", _recorder(seen))

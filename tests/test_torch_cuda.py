@@ -899,12 +899,15 @@ def _to_native(nc, coords):
 
 @pytest.mark.parametrize("curve", G2_CURVES)
 def test_g2_msm_and_batch_match_native(cuda, curve):
-    """multiexp "auto" on G2 runs the scan engine (Fq2 K3 launches, no G1
-    one) and == the native Pippenger at 2^10; multiple_multiexp, 4 chunks,
-    each chunk == native."""
+    """multiexp "auto" on G2 runs the pair engine (the Fq2 K3 launches
+    ``pair_steps`` counts, no G1 one) and == the native Pippenger at 2^10;
+    multiple_multiexp, 4 chunks (the pair engine with a chunk axis), each
+    chunk == native."""
     from tpu_ec_torch import curves, kernels
     from tpu_ec_torch.native import native_curve
+    from tpu_ec_torch.ops.autotune import tuned_window
     from tpu_ec_torch.ops.msm import MultiexpKernel
+    from tpu_ec_torch.ops.msm_pair import default_window_size_pair, pair_steps
 
     spec = getattr(curves, curve)
     nc = native_curve(spec)
@@ -919,12 +922,17 @@ def test_g2_msm_and_batch_match_native(cuda, curve):
     kernels.reset_launch_counters()
     got = kern.multiexp(bases, torch.as_tensor(s).to(cuda, torch.int32))
     counts = kernels.launch_counters()
-    assert counts["point_fp2"] > 0 and counts["point_horner_fp2"] == 1 and counts["point"] == 0
+    w = tuned_window(spec.name, "pair", n) or default_window_size_pair(n)
+    assert counts["point_fp2"] == sum(pair_steps(n, w).values()), counts
+    assert counts["point_horner_fp2"] == 1 and counts["point"] == 0, counts
     s64 = nc.fr.from_halflimbs(s.astype(np.uint64))
     assert np.array_equal(nc.to_affine(_to_native(nc, got)), nc.to_affine(nc.msm(aff, s64)[None, :]))
     C = 4
-    out = kern.multiple_multiexp(bases, torch.as_tensor(s).to(cuda, torch.int32), C)
     m = n // C
+    wb = tuned_window(spec.name, "pair", m) or default_window_size_pair(m)
+    kernels.reset_launch_counters()
+    out = kern.multiple_multiexp(bases, torch.as_tensor(s).to(cuda, torch.int32), C)
+    assert kernels.launch_counters()["point_fp2"] == sum(pair_steps(n, wb).values())
     want = np.stack([nc.msm(aff[c * m : (c + 1) * m], s64[c * m : (c + 1) * m]) for c in range(C)])
     assert np.array_equal(nc.to_affine(_to_native(nc, out)), nc.to_affine(want))
 

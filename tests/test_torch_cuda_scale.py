@@ -3,11 +3,12 @@ the kernels each path must launch.
 
 The digit NTT from 2^22 to 2^26 on the default thresholds and on its chunked
 route, the planes batch, K2's int8 entry at the 2^26 final pass, a G2
-commit, the multi-device layer in an NCCL group of one card, and the sorted
-engine at 2^20.  Referees: the native C++ library (``tpu_ec_torch.native``)
-and the single-card paths.  Launch counts come from the engines' own plans
-(``sorted_steps``, the fused domain's plan), or a call must launch what the
-call before it did.
+commit, a G2 MSM at 2^20 on the pair and the scan engine, the multi-device
+layer in an NCCL group of one card, and the sorted engine at 2^20.
+Referees: the native C++ library (``tpu_ec_torch.native``) and the
+single-card paths.  Launch counts come from the engines' own plans
+(``sorted_steps``, ``pair_steps``, the fused domain's plan), or a call must
+launch what the call before it did.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so it also runs where jax is not installed:
@@ -189,7 +190,7 @@ def test_fused_ntt_launches_its_plan(cuda, monkeypatch):
 
 def test_g2_commit_2p16_matches_native(cuda):
     """``CommitPipeline(BLS12-381 G2).commit`` at 2^16 (the digit NTT,
-    from_mont, the scan MSM on K3's Fq2 kernels and no G1 one): the
+    from_mont, the pair MSM on K3's Fq2 kernels and no G1 one): the
     evaluations == the native NTT, the commitment == the native Pippenger."""
     from tpu_ec_torch.ops.pipeline import CommitPipeline
 
@@ -207,6 +208,29 @@ def test_g2_commit_2p16_matches_native(cuda):
     assert np.array_equal(nfr.from_halflimbs(evals.cpu().numpy().astype(np.uint64)), want_e)
     want = nc.to_affine(nc.msm(aff, nfr.from_mont(want_e))[None, :])
     assert np.array_equal(nc.to_affine(_to_native(nc, com)), want)
+
+
+def test_g2_msm_2p20_pair_equals_scan(cuda):
+    """A BLS12-381 G2 MSM at 2^20 on the pair engine ("auto") and on the
+    scan engine give the same affine point; the pair run launches K3's Fq2
+    instances as ``pair_steps`` counts them, and no G1 one."""
+    from tpu_ec_torch.ops.autotune import tuned_window
+    from tpu_ec_torch.ops.msm import MultiexpKernel
+    from tpu_ec_torch.ops.msm_pair import default_window_size_pair, pair_steps
+
+    n = 1 << 20
+    nc = native_curve(BLS12_381_G2)
+    bases = tuple(c.repeat(16, 1) for c in _to_port(nc, _native_points(nc, 1 << 16, 64)[1], 2, cuda))
+    scal = torch.as_tensor(_field(BLS12_381_G2.scalar, n, 65)).to(cuda, torch.int32)
+    kern = MultiexpKernel(BLS12_381_G2, cuda, chunk_size=n)
+    w = tuned_window(BLS12_381_G2.name, "pair", n) or default_window_size_pair(n)
+    kernels.reset_launch_counters()
+    pair = kern.ops.to_affine(kern.multiexp(bases, scal))
+    assert _launched(("point_fp2", "point_horner_fp2", "point")) == {
+        "point_fp2": sum(pair_steps(n, w).values()), "point_horner_fp2": 1, "point": 0}
+    torch.cuda.empty_cache()
+    scan = kern.ops.to_affine(kern.multiexp(bases, scal, method="scan"))
+    assert all(torch.equal(a, b) for a, b in zip(pair, scan))
 
 
 def test_g2_chain_paths_launch_fq2_entries(cuda):

@@ -1,8 +1,9 @@
 """The port's G2 MSM: ``multiexp`` and ``multiple_multiexp`` with method
-"auto", which runs the scan engine on G2 as tpu_ec's does, against the
-bigint oracle (tpu_ec/curves/oracle.py) and the native C++ Pippenger with
-ext = 2.  Not against tpu_ec's own G2 scan program: its XLA-CPU compile
-takes minutes (tests/test_msm_scan.py marks it slow).
+"auto", which runs the pair engine on G2 (tpu_ec's runs the scan engine
+there), and with method "scan", against the bigint oracle
+(tpu_ec/curves/oracle.py) and the native C++ Pippenger with ext = 2.  Not
+against tpu_ec's own G2 scan program: its XLA-CPU compile takes minutes
+(tests/test_msm_scan.py marks it slow).
 
 Inputs from oracle seeds, with identity bases and zero scalars; small
 windows keep the plain K3 loops short.  Tolerance: none (integers).
@@ -31,12 +32,15 @@ def _inputs(jspec, n, seed):
 
 
 @pytest.mark.parametrize("curve,n,w", [("BN254", 9, 2), ("BLS12_381", 9, 3), ("BN254", 33, 4)])
-def test_multiexp_auto_is_scan_and_matches_oracle_and_native(curve, n, w):
+@pytest.mark.parametrize("method", ["auto", "scan"])
+def test_multiexp_auto_is_scan_and_matches_oracle_and_native(curve, n, w, method):
+    """"auto" (the pair engine) and the scan engine give the same affine
+    point as the native Pippenger and the oracle."""
     jspec, tspec = {"BN254": (J_BN, BN254_G2), "BLS12_381": (J_BLS, BLS12_381_G2)}[curve]
     pts, ks = _inputs(jspec, n, seed=80 + n)
     kern = MultiexpKernel(tspec, "cpu")
     ops = kern.ops
-    got = kern.multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), window_size=w)
+    got = kern.multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), window_size=w, method=method)
     assert got[0].shape == (1, 2 * ops.L)
     want = ops.to_affine_ints(ops.to_affine(got))[0]
     assert want == native_curve(tspec).msm_points(pts, ks)
@@ -45,17 +49,22 @@ def test_multiexp_auto_is_scan_and_matches_oracle_and_native(curve, n, w):
 
 
 def test_auto_runs_the_scan_engine(monkeypatch):
-    """"auto" on G2 calls the scan engine, for one MSM and for a batch."""
-    from tpu_ec_torch.ops import msm_scan
+    """"auto" on G2 calls the pair engine (no longer tpu_ec's scan engine),
+    for one MSM and for a batch."""
+    from tpu_ec_torch.ops import msm_pair, msm_scan
 
     calls = []
-    real = msm_scan.msm_scan
+    real = msm_pair.msm_pair
 
     def spy(*a, **k):
         calls.append(a[2].dim())
         return real(*a, **k)
 
-    monkeypatch.setattr(msm_scan, "msm_scan", spy)
+    def scan_spy(*a, **k):
+        raise AssertionError("auto ran the scan engine")
+
+    monkeypatch.setattr(msm_pair, "msm_pair", spy)
+    monkeypatch.setattr(msm_scan, "msm_scan", scan_spy)
     kern = MultiexpKernel(BN254_G2, "cpu")
     ops = kern.ops
     pts, ks = _inputs(J_BN, 4, seed=90)
@@ -77,7 +86,55 @@ def test_multiple_multiexp_three_chunks():
     assert got == [oracle.msm(J_BN, pts[c * 4 : (c + 1) * 4], ks[c * 4 : (c + 1) * 4]) for c in range(3)]
 
 
-@pytest.mark.parametrize("method", ["pair", "coz"])
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+def test_pair_one_bucket_matches_native(curve, monkeypatch):
+    """Every scalar equal: each window's rows form one run of the whole
+    length, so every pair round merges, every spill generation holds that
+    key's boundary rows and the finish folds them; == the native
+    Pippenger, in the K3 ops ``pair_steps`` counts (one launch each on the
+    card)."""
+    from tpu_ec_torch.curves import point as point_mod
+    from tpu_ec_torch.ops import msm_pair
+
+    jspec, tspec = {"BN254": (J_BN, BN254_G2), "BLS12_381": (J_BLS, BLS12_381_G2)}[curve]
+    n, w = 11, 3  # padded to 16 rows: four rounds, the padding rows a second key
+    pts = oracle.random_points(jspec, n, seed=96)
+    pts[4] = None
+    ks = [oracle.random_scalars(jspec, 1, seed=97)[0]] * n
+    calls = []
+
+    def count(mod, name):
+        real = getattr(mod, name)
+
+        def counted(*a, **k):
+            calls.append(name)
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+
+    count(point_mod, "point_op")
+    count(msm_pair, "horner")
+    kern = MultiexpKernel(tspec, "cpu")
+    ops = kern.ops
+    got = kern.multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), window_size=w, method="pair")
+    assert calls == ["point_op"] * (sum(msm_pair.pair_steps(n, w).values()) - 1) + ["horner"]
+    assert ops.to_affine_ints(ops.to_affine(got))[0] == native_curve(tspec).msm_points(pts, ks)
+
+
+def test_multiple_multiexp_bls12_381_matches_oracle():
+    """BLS12-381 G2 ``multiple_multiexp`` on "auto" (the pair engine with a
+    chunk axis): two chunks, one with a zero scalar and an identity base,
+    each == the oracle."""
+    pts, ks = _inputs(J_BLS, 8, seed=98)
+    kern = MultiexpKernel(BLS12_381_G2, "cpu")
+    ops = kern.ops
+    out = kern.multiple_multiexp(ops.from_affine_ints(pts), ops.scalars_to_limbs(ks), 2, window_size=3)
+    assert out[0].shape == (2, 2 * ops.L)
+    got = ops.to_affine_ints(ops.to_affine(out))
+    assert got == [oracle.msm(J_BLS, pts[c * 4 : (c + 1) * 4], ks[c * 4 : (c + 1) * 4]) for c in range(2)]
+
+
+@pytest.mark.parametrize("method", ["coz"])
 def test_g1_only_engines_raise_for_g2(method):
     kern = MultiexpKernel(BN254_G2, "cpu")
     ops = kern.ops

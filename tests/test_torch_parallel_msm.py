@@ -3,7 +3,8 @@
 One spawn of ranks a world size (d = 2 and d = 4, module-scoped,
 ``tests/torch_dist_ranks.py``) runs BN254 G1 MSMs of n = 32 and of n = 37
 (not a multiple of d: ``shard_leading`` pads with identities and zero
-scalars) with both bucket accumulations ("pair", "scan"); every rank must
+scalars) with both bucket accumulations ("pair", "scan"), and at d = 2 a
+BN254 G2 MSM of n = 8 on the default accumulation; every rank must
 hold the same point, and this process holds it, in affine, against the
 bigint oracle and the single-card port at the same window (computed while
 the ranks run).  tpu_ec's own
@@ -26,21 +27,28 @@ import numpy as np
 
 import torch_dist_ranks as ranks
 from tpu_ec.curves import oracle
-from tpu_ec.curves.params import BN254_G1 as J_BN
+from tpu_ec.curves.params import BN254_G1 as J_BN, BN254_G2 as J_BN2
 from tpu_ec.curves.point import point_ops as j_point_ops
 from tpu_ec.ops.msm_pair import default_window_size_pair as j_default_pair
 from tpu_ec.ops.msm_scan import scalar_mul_small as j_scalar_mul_small
-from tpu_ec_torch.curves import BN254_G1, PointOps
+from tpu_ec_torch.config import get_config
+from tpu_ec_torch.curves import BN254_G1, BN254_G2, PointOps
+from tpu_ec_torch.native import native_curve
 from tpu_ec_torch.ops.msm import MultiexpKernel
 from tpu_ec_torch.ops.msm_scan import scalar_mul_small
 from tpu_ec_torch.parallel.msm_dist import dist_window
 
 SIZES = [(32, None), (37, 5)]  # (n, window): the model's window, and a given one
 ACCUMS = ["pair", "scan"]
+G2_N = 8  # the G2 case's size (d = 2 only), apart from SIZES: its input files are keyed by n
 
 
 def _case(n: int):
     return oracle.random_points(J_BN, n, seed=300 + n), oracle.random_scalars(J_BN, n, seed=400 + n)
+
+
+def _g2_case():
+    return oracle.random_points(J_BN2, G2_N, seed=500), oracle.random_scalars(J_BN2, G2_N, seed=501)
 
 
 @pytest.fixture(scope="module")
@@ -48,16 +56,18 @@ def runs(tmp_path_factory):
     """{"work": {d: the directory of d's spawn}, "single": {(d, n, accum):
     the single-card engine's point at the distributed window}}, the
     references computed while the ranks run."""
-    ops = PointOps(BN254_G1, "cpu")
+    ops, ops2 = PointOps(BN254_G1, "cpu"), PointOps(BN254_G2, "cpu")
     runs, work = [], {}
     for d in (2, 4):
         work[d] = str(tmp_path_factory.mktemp(f"msm_d{d}"))
-        for n, _ in SIZES:
-            pts, ks = _case(n)
-            x, y = ops.from_affine_ints(pts)
-            for name, t in (("x", x), ("y", y), ("s", ops.scalars_to_limbs(ks))):
+        inputs = [(n, ops, *_case(n)) for n, _ in SIZES] + ([(G2_N, ops2, *_g2_case())] if d == 2 else [])
+        for n, o, pts, ks in inputs:
+            x, y = o.from_affine_ints(pts)
+            for name, t in (("x", x), ("y", y), ("s", o.scalars_to_limbs(ks))):
                 np.save(os.path.join(work[d], f"msm_{n}_{name}.npy"), t.numpy())
         cases = [(BN254_G1.name, n, accum, w) for n, w in SIZES for accum in ACCUMS]
+        if d == 2:
+            cases.append((BN254_G2.name, G2_N, None, None))
         runs.append((d, (work[d], [], cases, False, [])))
     spawn = ranks.Spawn(runs)
     single, by_window = {}, {}
@@ -88,6 +98,18 @@ def test_dist_msm(runs, d, n, window, accum):
     got = ops.to_affine_ints(ops.to_affine(tuple(torch.as_tensor(c) for c in got)))[0]
     assert got == oracle.msm(J_BN, pts, ks)
     assert got == runs["single"][d, n, accum]
+
+
+def test_dist_msm_g2_default_accum_matches_native(runs):
+    """BN254 G2 over two ranks on the default accumulation, the pair engine
+    (G1-only before it took the coordinate's width): rank 0's point == the
+    native Pippenger, in affine."""
+    assert get_config().dist_msm_accum == "pair"
+    ops = PointOps(BN254_G2, "cpu")
+    pts, ks = _g2_case()
+    got = np.load(os.path.join(runs["work"][2], ranks.msm_case_name(G2_N, None, None) + ".npy"))
+    got = ops.to_affine_ints(ops.to_affine(tuple(torch.as_tensor(c) for c in got)))[0]
+    assert got == native_curve(BN254_G2).msm_points(pts, ks)
 
 
 @pytest.mark.parametrize("n", [1, 32, 37, 1 << 10, 1 << 20])

@@ -74,10 +74,10 @@ def _commit():
     return lambda: pipe.commit(coeffs, bases)
 
 
-def _msm(spec, window):
+def _msm(spec, window, method="auto"):
     kern = MultiexpKernel(spec, "cpu")
     bases, s = _points(kern.ops, N), _scalars(N)
-    return lambda: kern.multiexp(bases, s, window_size=window)
+    return lambda: kern.multiexp(bases, s, window_size=window, method=method)
 
 
 def _batch(monkeypatch, chunks=4, w=3):
@@ -123,6 +123,7 @@ CASES = {
                           "ntt/inter_twiddle", "ntt/transpose", *PAIR],
                {"ntt/transpose": 1, "ntt/leaf_mm": 2, "msm/pair/round": 4}),
     "msm_pair": ("msm", PAIR, {"msm/pair/round": 4, "msm/horner": 1}),
+    "msm_g2_pair": ("msm", PAIR, {"msm/pair/round": 4, "msm/horner": 1}),
     "msm_g2_scan": ("msm", ["msm/digits", "msm/scan/rows", "msm/scan/round", "msm/scan/scatter", "msm/tail",
                             "msm/horner"], {"msm/scan/round": (N - 1).bit_length(), "msm/tail": 1}),
     "msm_batch": ("msm_batch", ["msm_batch/slab_size", "msm_batch/slab", "msm_batch/cat", *PAIR],
@@ -135,7 +136,8 @@ CASES = {
 
 def _entry(name, monkeypatch):
     return {"commit": _commit, "msm_pair": lambda: _msm(curves.BN254_G1, 4),
-            "msm_g2_scan": lambda: _msm(curves.BN254_G2, 4), "msm_batch": lambda: _batch(monkeypatch),
+            "msm_g2_pair": lambda: _msm(curves.BN254_G2, 4),
+            "msm_g2_scan": lambda: _msm(curves.BN254_G2, 4, "scan"), "msm_batch": lambda: _batch(monkeypatch),
             "ec_fft": lambda: _ec_fft(False), "ec_fft_inverse": lambda: _ec_fft(True)}[name]()
 
 
@@ -177,6 +179,8 @@ def test_entry_stage_spans_nest(name, stand_ins, timing, monkeypatch):
             assert up[-1] == entry, (lab, up)
     for lab, k in counts.items():
         assert sum(1 for s, _ in spans if s == lab) == k, lab
+    if name == "msm_g2_pair":  # G2's "auto" runs the pair engine, none of the scan's stages
+        assert not any(lab.startswith("msm/scan/") for lab in found)
     if name == "commit":  # the engine's spans inside the MSM's; its negation's borrow test inside the rows
         assert all(up[0] == "msm" for lab, up in spans if lab == "msm/pair/round")
         assert any(lab == "wait/borrow_test" and up[0] == "msm/pair/rows" for lab, up in spans)

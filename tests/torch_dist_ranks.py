@@ -36,8 +36,8 @@ def ntt_case_name(log_n: int, inverse: bool, route: str) -> str:
     return f"ntt_{route}_{log_n}_{int(inverse)}"
 
 
-def msm_case_name(n: int, accum: str, window: int | None) -> str:
-    return f"msm_{n}_{accum}_{window or 0}"
+def msm_case_name(n: int, accum: str | None, window: int | None) -> str:
+    return f"msm_{n}_{accum or 'default'}_{window or 0}"
 
 
 def run_all(work: str, ntt_cases: list, msm_cases: list, ec_fft, mesh_cases: list) -> None:
@@ -46,7 +46,8 @@ def run_all(work: str, ntt_cases: list, msm_cases: list, ec_fft, mesh_cases: lis
     ``ntt_cases``: (field name, log_n, inverse, route "pease" or "digit");
     the input is ``{work}/ntt_{field}_{log_n}.npy`` (n, L) Montgomery; each
     rank writes its output slab and its twiddle slice.  ``msm_cases``:
-    (curve name, n, accum, window); inputs ``{work}/msm_{n}_{x,y,s}.npy``;
+    (curve name, n, accum, window), accum None for config's default;
+    inputs ``{work}/msm_{n}_{x,y,s}.npy``;
     rank 0 writes the Jacobian result.  ``ec_fft`` (True or "both"): the
     stacked batch ``{work}/ec_{X,Y,Z}.npy`` (B, n, L) transformed and
     gathered on rank 0, with "both" the inverse of that output too.
@@ -75,7 +76,7 @@ def run_all(work: str, ntt_cases: list, msm_cases: list, ec_fft, mesh_cases: lis
         _save(os.path.join(work, f"tw_{log_n}_{int(inverse)}_r{r}.npy"), plan.tw)
     for curve, n, accum, window in msm_cases:
         saved = cfg.dist_msm_accum
-        cfg.dist_msm_accum = accum
+        cfg.dist_msm_accum = accum or saved
         try:
             kern = DistMultiexpKernel(curves[curve], mesh)
             pts = tuple(_load(os.path.join(work, f"msm_{n}_{c}.npy")) for c in "xy")

@@ -3,9 +3,9 @@
 PyTorch counterpart of ``tpu_ec/ops/msm.py``: window digits
 (``make_digits``, signed or unsigned), chunk sizing by device memory
 (``calc_chunk_size``) and ``MultiexpKernel.multiexp`` on the pair-halving
-engine (``ops/msm_pair.py``, the commit pipeline's), the co-Z engine
-(``ops/msm_coz.py``), the scan engine (``ops/msm_scan.py``, the one G2
-runs on, as in tpu_ec: the other two are G1-only), the sorted engine
+engine (``ops/msm_pair.py``, the one "auto" runs for signed digits, G1 and
+G2), the co-Z engine (``ops/msm_coz.py``, G1-only), the scan engine
+(``ops/msm_scan.py``, tpu_ec's G2 engine), the sorted engine
 (``ops/msm_sorted.py``, run-halving rounds; G1 and G2) or the bucket lattice
 below (``msm_lattice``, the one engine that takes unsigned digits, G1 and
 G2), with oversized inputs split into chunks whose partial sums are added
@@ -209,14 +209,13 @@ def batch_slab(spec: CurveSpec, method: str, chunk: int, w: int, device,
     return 1 << max(0, c.bit_length() - 1)
 
 
-def _auto(spec: CurveSpec, signed: bool = True) -> str:
-    """The engine "auto" picks, as tpu_ec's does on an accelerator
-    (tpu_ec/ops/msm.py:393-405, 515-522): the lattice for unsigned digits,
-    else the pair engine on G1 and the scan engine on G2 (the pair and
-    co-Z engines are G1-only)."""
-    if not signed:
-        return "lattice"
-    return "pair" if spec.ext == 1 else "scan"
+def _auto(signed: bool) -> str:
+    """The engine "auto" picks: the lattice for unsigned digits, else the
+    pair engine, on G1 and G2 alike.  tpu_ec's (tpu_ec/ops/msm.py:393-405,
+    515-522) runs G2 on the scan engine, whose ~log2(n) adds a point and
+    window its pair engine avoids only on G1; the port's pair engine takes
+    either coordinate width."""
+    return "pair" if signed else "lattice"
 
 
 class MultiexpKernel:
@@ -242,9 +241,9 @@ class MultiexpKernel:
         ``PointOps.width``, 2 Fq elements a coordinate on G2); ``scalars``
         are (n, Ls) plain-integer limbs (not Montgomery; see
         ``PointOps.scalars_to_limbs``).  ``method``: "pair" (the
-        pair-halving engine, which "auto" picks on G1), "coz" (the co-Z
-        scaled-affine engine), "scan" (the masked segmented-scan engine,
-        which "auto" picks on G2), "sorted" (the run-halving engine), all
+        pair-halving engine, which "auto" picks for signed digits), "coz"
+        (the co-Z scaled-affine engine, G1 only), "scan" (the masked
+        segmented-scan engine), "sorted" (the run-halving engine), all
         four on signed digits only, or
         "lattice" (the bucket lattice, signed or unsigned digits, which
         "auto" picks for ``signed=False``; ``num_groups`` G, else
@@ -262,7 +261,7 @@ class MultiexpKernel:
 
         self._check_abort()
         if method == "auto":
-            method = _auto(self.spec, signed)
+            method = _auto(signed)
         n = bases[0].shape[0]
         if method == "lattice":
             w = window_size or default_window_size(n)
@@ -319,9 +318,9 @@ class MultiexpKernel:
         rows [c * n, (c + 1) * n)) -> a Jacobian batch of num_chunks points.
 
         ``method``: "pair" (the flat one-sort engine: the pair engine with a
-        chunk axis, which "auto" picks on G1) or "scan" (the scan engine with
-        a chunk axis, "auto" on G2) run the batch in slabs of chunks sized from the device
-        memory (``batch_slab``); the window is ``window_size``, else the
+        chunk axis, which "auto" picks for signed digits) or "scan" (the
+        scan engine with a chunk axis) run the batch in slabs of chunks
+        sized from the device memory (``batch_slab``); the window is ``window_size``, else the
         card's table at the chunk size (``tuned_window``), else the engine's
         model there (``config.msm_window`` is not read, as in tpu_ec).  Any
         other method, and "auto" with ``signed=False`` (the lattice), runs
@@ -331,7 +330,7 @@ class MultiexpKernel:
             raise ValueError(f"bases must split evenly into chunks: {n} points, {num_chunks} chunks")
         chunk = n // num_chunks
         if method == "auto":
-            method = _auto(self.spec, signed)
+            method = _auto(signed)
         if method not in ("pair", "scan"):
             with phase("msm_batch", curve=self.spec.name, n=chunk, batch=num_chunks, engine=method):
                 outs = []

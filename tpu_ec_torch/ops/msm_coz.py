@@ -124,7 +124,7 @@ def msm_coz_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size
     (n, Ls + 1) plain limbs, zero-padded by one limb."""
     if ops.spec.ext != 1:
         raise NotImplementedError("the co-Z engine is G1-only, as tpu_ec's is (tpu_ec/ops/msm_coz.py:134); "
-                                  "G2 runs on the scan engine (method 'scan' or 'auto')")
+                                  "G2 runs on the pair engine (method 'pair' or 'auto')")
     F = ops.F
     L = ops.L
     w = window_size

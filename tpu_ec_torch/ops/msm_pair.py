@@ -1,10 +1,14 @@
-"""Pair-halving MSM engine (G1), for one MSM or a flat batch of them.
+"""Pair-halving MSM engine (G1 and G2), for one MSM or a flat batch of them.
 
 PyTorch counterpart of ``tpu_ec/ops/msm_pair.py`` and of the flat engine of
 ``tpu_ec/ops/msm_batch.py``.  Per window:
 
   1. sort the bucket keys and gather the points into bucket order once, as
-     a fused (n, 2L) row matrix, negating y where the digit is negative.
+     a fused (n, 2L) row matrix, negating y where the digit is negative
+     (L = ``ops.width``, a coordinate's half-limbs: ext times Fq's, so a
+     G2 row carries Fq2's c0 then c1 per coordinate and K3 runs its Fq2
+     instances; ``tpu_ec``'s engine takes G1 only,
+     ``tpu_ec/ops/msm_pair.py:174``).
      The key is |digit|; for a batch of C chunks (the AMT workload: C
      independent n-point MSMs, ``ag-build/cl/multiexp.cl:217-263`` runs
      them in one launch) it is chunk * (half + 1) + |digit| over all C * n
@@ -61,6 +65,22 @@ def default_window_size_pair(n: int) -> int:
     return best_w
 
 
+def _finish_rounds(rounds: int) -> int:
+    """The finish's scan rounds after ``rounds`` pair rounds, tpu_ec's
+    count (tpu_ec/ops/msm_pair.py:238): a key's rows among the last
+    survivor and the spills are fewer than rounds + 2."""
+    return max(1, math.ceil(math.log2(rounds + 2)))
+
+
+def pair_steps(n: int, w: int) -> dict:
+    """K3 launches of ``msm_pair`` on n rows (C n for a batch) at window w:
+    one a pair round (log2 of n rounded up to a power of two), the
+    finish's scan rounds, the prefix scan and the tree of the tail, one
+    Horner."""
+    rounds = max(1, (n - 1).bit_length())
+    return {"rounds": rounds, "finish": _finish_rounds(rounds), "tail": 2 * (w - 1), "horner": 1}
+
+
 def _gather_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """data (W, s, C), idx (W, c) -> (W, c, C): rows of each window."""
     return torch.gather(data, 1, idx.unsqueeze(-1).expand(idx.shape + (data.shape[-1],)))
@@ -84,9 +104,9 @@ def _masked_monotone_pack(keys, data, mask, cap: int):
 def _pair_round(ops: PointOps, key, data, *, affine: bool, spill_cap: int):
     """One halving round: (W, s) keys + (W, s, C) fused rows -> (W, s/2)
     + spill.  Equal-key pairs merge (one batched add); boundary pairs keep
-    left and spill right.  The new rows are always Jacobian (3L columns):
-    the add writes them, P where the keys differ."""
-    L = ops.L
+    left and spill right.  The new rows are always Jacobian (3L columns, L
+    = ``ops.width``): the add writes them, P where the keys differ."""
+    L = ops.width
     W, s = key.shape
     kp = key.reshape(W, s // 2, 2)
     ke, ko = kp[..., 0], kp[..., 1]
@@ -109,7 +129,7 @@ def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
     entries keyed SENT."""
     for r in range(max_run_log):
         sh = 1 << r
-        data = _shifted_add(ops, data, sh, scan_keep(key, sh) | (key == SENT), ops.L)
+        data = _shifted_add(ops, data, sh, scan_keep(key, sh) | (key == SENT), ops.width)
     nxt = torch.cat([key[:, 1:], torch.full_like(key[:, :1], SENT)], dim=1)
     is_last = (key != nxt) & (key != SENT)
     return torch.where(is_last, key, SENT), data
@@ -118,12 +138,13 @@ def _seg_scan_finish(ops: PointOps, key, data, max_run_log: int):
 def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
     """Step 1: per window, the sorted bucket keys (W, rows) and the points
     in bucket order as fused (W, rows, 2L) affine rows, y negated where the
-    digit is negative.  ``points`` (x, y) are (n, L), or (C, n, L) with
+    digit is negative (L = ``ops.width``).  ``points`` (x, y) are (n, L),
+    or (C, n, L) with
     ``scalars`` (C, n, Ls + 1) for a batch, whose keys carry the chunk id;
     rows = C * n rounded up to a power of two, the padding rows (identities,
     digit 0) keyed to chunk C - 1's slot 0, which the tail never reads."""
     F = ops.F
-    L = ops.L
+    L = ops.width
     num_windows = -(-SCALAR_BITS // w)
     half = 1 << (w - 1)
     C = scalars.shape[0] if scalars.dim() == 3 else 1
@@ -155,14 +176,11 @@ def _bucket_rows(ops: PointOps, points, scalars: torch.Tensor, w: int):
 def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     """Bucket accumulation: returns (W, half + 2, 3L) fused Jacobian buckets
     (slot 0 = digit-0 dummy, slot half + 1 = overflow; both excluded from
-    the reduction), or (W, C, half + 2, 3L) for a batch.  ``points`` are
-    affine (x, y) of (n, L) ((0, 0) = identity), or (C, n, L); ``scalars``
-    are (n, Ls + 1), or (C, n, Ls + 1), plain limbs, zero-padded by one
-    limb."""
-    if ops.spec.ext != 1:
-        raise NotImplementedError("the pair engine is G1-only, as tpu_ec's is (tpu_ec/ops/msm_pair.py:174); "
-                                  "G2 runs on the scan engine (method 'scan' or 'auto')")
-    L = ops.L
+    the reduction), or (W, C, half + 2, 3L) for a batch (L =
+    ``ops.width``).  ``points`` are affine (x, y) of (n, L) ((0, 0) =
+    identity), or (C, n, L); ``scalars`` are (n, Ls + 1), or (C, n, Ls +
+    1), plain limbs, zero-padded by one limb."""
+    L = ops.width
     w = window_size
     num_windows = -(-SCALAR_BITS // w)
     half = 1 << (w - 1)
@@ -192,7 +210,7 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
         del k, d, spills
         fk, order = torch.sort(fk, dim=1, stable=True)
         fd = _gather_rows(fd, order)
-        fk, fd = _seg_scan_finish(ops, fk, fd, max(1, math.ceil(math.log2(rounds + 2))))
+        fk, fd = _seg_scan_finish(ops, fk, fd, _finish_rounds(rounds))
 
     # unique survivors -> pack -> scatter into the (C, half + 2) grid; an
     # empty slot goes to chunk 0's overflow slot
@@ -210,9 +228,10 @@ def msm_pair_buckets(ops: PointOps, points, scalars: torch.Tensor, *, window_siz
 def horner_combine(ops: PointOps, partials, w: int):
     """Per-window sums (W, L), or (W, C, L) for a batch, coordinates -> the
     final point (1, L), or (C, L), high to low: res = 2^w * res + S_j
-    (multiexp.rs:221-235), in one K3 launch, one tile of lanes a chunk."""
+    (multiexp.rs:221-235), in one K3 launch (Fq2's on G2), one tile of
+    lanes a chunk."""
     with phase("msm/horner"):
-        return horner(ops.spec.base, partials, w)
+        return horner(ops.spec.base, partials, w, ext=ops.spec.ext)
 
 
 def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
@@ -220,4 +239,4 @@ def msm_pair(ops: PointOps, points, scalars: torch.Tensor, *, window_size: int):
     ((C, n, L) points, (C, n, Ls + 1) scalars), C MSMs -> batch (C,)."""
     w = window_size
     tri = bucket_tail(ops, msm_pair_buckets(ops, points, scalars, window_size=w), 1 << (w - 1))
-    return horner_combine(ops, _unfuse(tri, ops.L, 3), w)
+    return horner_combine(ops, _unfuse(tri, ops.width, 3), w)

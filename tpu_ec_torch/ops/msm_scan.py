@@ -18,10 +18,11 @@ Every shifted round here and in the pair engine's finish is
 the same contiguous block, never from a shifted copy of it.
 
 It does ~log2(n) times the pair engine's adds; ``tpu_ec`` built it for its
-short XLA compile, and its "auto" runs G2 here.  A coordinate is
-``ops.width`` = ext * L half-limbs (Fq2's c0 then c1 on G2), so fused blocks
-carry 3 * ext * L columns, in tpu_ec's column order; K3 runs its Fq2
-instances on G2.
+short XLA compile, and its "auto" runs G2 here; the port's "auto" runs the
+pair engine on both groups, and ``method="scan"`` reaches this one.  A
+coordinate is ``ops.width`` = ext * L half-limbs (Fq2's c0 then c1 on G2),
+so fused blocks carry 3 * ext * L columns, in tpu_ec's column order; K3
+runs its Fq2 instances on G2.
 """
 
 from __future__ import annotations

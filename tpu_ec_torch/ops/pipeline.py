@@ -27,8 +27,7 @@ from .ntt import FftKernel
 
 class CommitPipeline:
     """NTT -> from_mont -> MSM against a fixed G1 or G2 point table (SRS
-    analog); the MSM's "auto" engine is the pair engine on G1, the scan
-    engine on G2."""
+    analog); the MSM's "auto" engine is the pair engine, on G1 and G2."""
 
     def __init__(self, spec: CurveSpec, device="cuda", maybe_abort=None):
         self.spec = spec

@@ -6,7 +6,7 @@ write the table ``ops/autotune.tuned_window`` reads.
 
 The H100 counterpart of ``scripts/autotune_msm_tpu.py``.  For each row
 (default: BLS12-381 G1 ``pair`` at 2^14, 2^16, 2^18, 2^20 and 2^22, G1
-``scan`` at 2^14, BLS12-381 G2 ``scan`` at 2^16 and 2^20) it times
+``scan`` at 2^14, BLS12-381 G2 ``pair`` and ``scan`` at 2^16 and 2^20) it times
 ``MultiexpKernel.multiexp`` at every window within 2 of the engine's
 model (in [2, 20]): one warm-up call each, then the mean of three calls
 each (host clock around synchronised calls), timed in three rounds over
@@ -44,7 +44,8 @@ from concurrent.futures import ThreadPoolExecutor
 SEED = 20240601
 SPAN = 2  # windows within this of the model's
 DEFAULT_ROWS = ("bls12_381_g1:pair:14", "bls12_381_g1:pair:16", "bls12_381_g1:pair:18", "bls12_381_g1:pair:20",
-                "bls12_381_g1:pair:22", "bls12_381_g1:scan:14", "bls12_381_g2:scan:16", "bls12_381_g2:scan:20")
+                "bls12_381_g1:pair:22", "bls12_381_g1:scan:14", "bls12_381_g2:pair:16", "bls12_381_g2:pair:20",
+                "bls12_381_g2:scan:16", "bls12_381_g2:scan:20")
 DISTINCT = 1 << 16  # distinct points, tiled to n
 
 
