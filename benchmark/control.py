@@ -8,7 +8,9 @@ For each seed, in one process: the cell's set-up, a closed loop of
 (the lower reading) and for the control's (the upper reading): the plain
 reference put in the program's place at one bit less of scalar precision
 (each op's ``control``).  One JSON line a seed.  The benchmark's own runs do
-not run the control.
+not run the control.  A cell on N > 1 cards runs on N ranks, as
+``benchmark/run.py`` runs it (``on_ranks``): every rank reads its own
+numbers, and rank 0 prints rank k's as ``r<k>/<name>``.
 """
 
 from __future__ import annotations
@@ -24,17 +26,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from benchmark import run as bench  # noqa: E402
 
 
-def readings(cell, seed: int, seconds: float, device, sample: int | None = None) -> dict:
-    """{"program": {name: value}, "control": {name: value}} of one seed."""
+def readings(cell, seed: int, seconds: float, device, sample: int | None = None, ranks=None) -> dict:
+    """{"program": {name: value}, "control": {name: value}} of one seed
+    (``ranks``: a multi-rank cell's, which puts the loop in lock step)."""
     import torch
 
     traffic = cell.traffic
     op = bench.load_module("ops", traffic["op"]).Op(cell.config, traffic, seed, device)
     for i in range(traffic.get("warmup", 1)):
         bench.hard_sync(op.call(i % op.pool))
+    if ranks is not None:
+        ranks.barrier()
     keeper = bench.Keeper(seed, sample or traffic.get("check_sample", 1))
     start, i = time.perf_counter(), 0
-    while time.perf_counter() - start < seconds:
+
+    def more() -> bool:
+        go = time.perf_counter() - start < seconds
+        return go if ranks is None else ranks.decide(go)
+
+    while more():
         out = op.call(i % op.pool)
         bench.hard_sync(out)
         keeper.keep(i, *op.keep(out))
@@ -46,6 +56,23 @@ def readings(cell, seed: int, seconds: float, device, sample: int | None = None)
     got = {name: v for name, v, _ in op.check(small, sampled)}
     ctl = {name: v for name, v, _ in op.check(*op.control(small, sampled))}
     return {"ops": i, "program": got, "control": ctl}
+
+
+def _rank_readings(ranks, device, cell, seeds, seconds: float, sample) -> None:
+    """Every seed's readings on one rank; rank 0 prints each seed's line."""
+    for seed in seeds:
+        t = time.perf_counter()
+        parts = ranks.gather(readings(cell, seed, seconds, device, sample, ranks))
+        if ranks.rank == 0:
+            line = {"workload": cell.name, "seed": seed, "ops": parts[0]["ops"]}
+            for side in ("program", "control"):
+                line[side] = {f"r{k}/{name}": v for k, p in enumerate(parts) for name, v in p[side].items()}
+            print(json.dumps({**line, "s": time.perf_counter() - t}), flush=True)
+
+
+def rank_readings(cell, seeds, seconds: float, device_type: str = "cuda", sample: int | None = None) -> None:
+    """``readings`` of each seed on ``cell.chips`` ranks, one JSON line a seed."""
+    bench.on_ranks(cell.chips, device_type, _rank_readings, (cell, seeds, seconds, sample))
 
 
 def main(argv=None) -> int:
@@ -60,9 +87,12 @@ def main(argv=None) -> int:
     bench.isolate_program_env()
     import torch
 
-    if not torch.cuda.is_available():
-        print("control: no CUDA device", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"control: the cell needs {cell.chips} CUDA device(s)", file=sys.stderr)
         return 3
+    if cell.chips > 1:
+        rank_readings(cell, args.seeds, args.seconds, "cuda", args.check_sample)
+        return 0
     device = torch.device("cuda", 0)
     for seed in args.seeds:
         t = time.perf_counter()

@@ -1,5 +1,6 @@
 """The device allocator's peak (torch.cuda.max_memory_allocated) over the
-whole run, set-up included, in GiB."""
+whole run, set-up included, in GiB; on a multi-rank cell the largest
+rank's."""
 
 
 def read(run):

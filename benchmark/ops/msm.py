@@ -1,5 +1,5 @@
 """One MSM: ``MultiexpKernel(curve).multiexp(bases, scalars)`` with the
-"auto" engine (tpu_ec_torch/ops/msm.py; the scan engine on G2).
+"auto" engine (tpu_ec_torch/ops/msm.py; the pair engine, on G1 and G2).
 
 Inputs: 2^log_n fixed affine bases k_i G and a pool of ``pool`` scalar
 vectors (plain Fr limbs), cycled.

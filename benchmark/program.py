@@ -93,6 +93,15 @@ def dot_mod(s: torch.Tensor, k: torch.Tensor, modulus: int, block: int = 1 << 16
     return out
 
 
+def preload_kernels() -> None:
+    """Build (on a checkout's first run) and load the program's kernel
+    library, so that the ranks of a multi-rank cell, spawned after this, find
+    it built rather than running nvcc side by side."""
+    from tpu_ec_torch.kernels.build import load
+
+    load()
+
+
 class ProgramOp:
     """Base of an op: the program's counters and kernel names."""
 

@@ -22,6 +22,9 @@ TINY = {"commit": {"log_n": 4, "pool": 2, "warmup": 1, "check_sample": 1, "trace
         "ec_fft": {"log_n": 3, "transforms": 2, "pool": 2, "warmup": 1, "trace_ops": 1},
         "msm": {"log_n": 3, "pool": 2, "warmup": 1, "trace_ops": 1},
         "msm_batch": {"base_log_n": 4, "tile": 2, "chunks": 4, "pool": 2, "warmup": 1, "trace_ops": 1}}
+#: keys of a configuration's file that say what it is or how it was cut, and
+#: so are never a cut themselves
+NOT_SCALE = {"name", "source", "reduced", "assumed", "guarantees"}
 CELLS = {"commit": "commit-2p20", "ec_fft": "ecfft-16x2p11", "msm": "g2-msm-2p20", "msm_batch": "msm-batch-2p10x2p12"}
 
 
@@ -29,38 +32,89 @@ def one_line(s):
     return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
 
 
-def test_benchmark_json_keeps_the_contract():
-    assert set(SPEC) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
-    assert SPEC["paths"] == ["benchmark"] and SPEC["command"] == ["python3", "benchmark/run.py"]
-    assert isinstance(SPEC["run_seconds"], int) and 1 <= SPEC["run_seconds"] <= 51
-    configs = {c["name"]: c for c in SPEC["configs"]}
-    for c in SPEC["configs"]:
+def keeps_the_contract(spec, root=R.ROOT):
+    """Assert that ``spec`` (BENCHMARK.json's content) keeps the contract."""
+    assert set(spec) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
+    assert spec["paths"] == ["benchmark"] and spec["command"] == ["python3", "benchmark/run.py"]
+    assert isinstance(spec["run_seconds"], int) and 1 <= spec["run_seconds"] <= 51
+    configs = {c["name"]: c for c in spec["configs"]}
+    for c in spec["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and one_line(c["source"]) and one_line(c["why"])
-        assert c["file"] == f"benchmark/configs/{c['name']}.json" and c["reduced"] == []
-        assert os.path.exists(os.path.join(R.ROOT, c["file"]))
+        assert c["file"] == f"benchmark/configs/{c['name']}.json" and os.path.exists(os.path.join(root, c["file"]))
+        # reduced: at most 16 scale keys of the configuration's file: a number
+        # or a nested group that the file states, not its text or notes
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert len(set(c["reduced"])) == len(c["reduced"])
+        stated = json.load(open(os.path.join(root, c["file"])))
+        for k in c["reduced"]:
+            assert isinstance(k, str) and NAME.match(k) and k in stated and k not in NOT_SCALE, k
+            assert isinstance(stated[k], (int, float, dict, list)) and not isinstance(stated[k], bool), k
     used = set()
-    for w in SPEC["workloads"]:
+    for w in spec["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and one_line(w["why"])
-        assert w["config"] in configs and w["chips"] == 1
+        assert w["config"] in configs and w["chips"] in (1, 4)
         used.add(w["config"])
+    # four-card cells: at most a quarter of the cells, rounded down, and one always may
+    assert sum(w["chips"] == 4 for w in spec["workloads"]) <= max(1, len(spec["workloads"]) // 4)
     assert used == set(configs)
-    assert len({(w["config"], w["traffic"]) for w in SPEC["workloads"]}) == len(SPEC["workloads"])
-    names = [m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]]
+    assert len({(w["config"], w["traffic"]) for w in spec["workloads"]}) == len(spec["workloads"])
+    names = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]]
     assert len(names) == len(set(names)) and "setup_s" in names
-    for m in SPEC["end_to_end"]:
+    for m in spec["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for m in SPEC["per_layer"]:
+    for m in spec["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["moves"] in {e["name"] for e in SPEC["end_to_end"]} and one_line(m["layer"])
-    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert m["moves"] in {e["name"] for e in spec["end_to_end"]} and one_line(m["layer"])
+    for m in spec["end_to_end"] + spec["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
-    for w in SPEC["workloads"]:  # setup_s, one other end-to-end metric, one per-layer metric
-        e2e = [m["name"] for m in R.metrics_for(SPEC, w["name"], False)]
-        assert "setup_s" in e2e and len(e2e) >= 2 and R.metrics_for(SPEC, w["name"], True)
+    for w in spec["workloads"]:  # setup_s, one other end-to-end metric, one per-layer metric
+        e2e = [m["name"] for m in R.metrics_for(spec, w["name"], False)]
+        assert "setup_s" in e2e and len(e2e) >= 2 and R.metrics_for(spec, w["name"], True)
+
+
+def test_benchmark_json_keeps_the_contract():
+    keeps_the_contract(SPEC)
+
+
+def with_cells(spec, chips):
+    """``spec`` and one more cell a number of ``chips``, each of an existing
+    configuration and traffic under a new name."""
+    out = json.loads(json.dumps(spec))
+    base = spec["workloads"][0]
+    for k, n in enumerate(chips):
+        out["workloads"].append({**base, "name": f"extra-{k}", "traffic": f"extra-{k}", "chips": n})
+    return out
+
+
+@pytest.mark.parametrize("chips,ok", [((4,), True), ((2,), False), ((3,), False), ((4, 4), False),
+                                      ((1, 1, 1, 4, 4), True), ((1, 1, 1, 4, 4, 4), False)],
+                         ids=["one-4", "a-2", "a-3", "two-4-of-7", "two-4-of-10", "three-4-of-11"])
+def test_the_contract_takes_chips_1_or_4_on_a_quarter_of_the_cells(chips, ok):
+    spec = with_cells(SPEC, chips)
+    if ok:
+        keeps_the_contract(spec)
+    else:
+        with pytest.raises(AssertionError):
+            keeps_the_contract(spec)
+
+
+@pytest.mark.parametrize("reduced", [["transforms per op"], ["no_such_key"], ["log_n", "log_n"],
+                                     ["a" * 65], "log_n", ["name"], ["source"], ["reduced"], ["assumed"],
+                                     ["guarantees"], ["field"], ["deployment"]])
+def test_the_contract_refuses_a_reduced_that_is_not_keys_of_the_file(reduced):
+    """Each entry of ``reduced`` names a scale key that the configuration's
+    file states (bls12_381-porep-ntt-2p27's, which has every kind of key)."""
+    spec = json.loads(json.dumps(SPEC))
+    c = next(c for c in spec["configs"] if c["name"] == "bls12_381-porep-ntt-2p27")
+    c["reduced"] = ["partitions"]
+    keeps_the_contract(spec)
+    c["reduced"] = reduced
+    with pytest.raises(AssertionError):
+        keeps_the_contract(spec)
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])

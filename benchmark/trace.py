@@ -4,8 +4,8 @@
 (``bench/op`` around the call, ``bench/read_back`` around the synchronised
 read-back, ``bench/window`` around them all), under torch.profiler with CPU
 and CUDA activities.  A trace that holds no device time, which torch.profiler
-gives at times, is taken again, up to three times (as chip_smoke.py's
-``traced`` does).  ``Trace`` keeps the device operations' intervals and
+gives at times, is taken again, up to three times; on a multi-rank cell the
+ranks take it again together.  ``Trace`` keeps the device operations' intervals and
 names, the window's bounds and the host's events, from which the readers in
 ``benchmark/metrics`` take busy time, idle share and device time by kernel.
 """
@@ -136,9 +136,12 @@ def _collect(prof):
     return device_ops, host_ops, window
 
 
-def trace_ops(call, count: int, sync, hand: set, attempts: int = 3) -> Trace:
+def trace_ops(call, count: int, sync, hand: set, attempts: int = 3, agree=None) -> Trace:
     """``count`` calls of ``call(j)``, each synchronised by ``sync``, traced
-    after one call that lets the profiler settle."""
+    after one call that lets the profiler settle.  ``agree`` (a multi-rank
+    cell's ``Ranks.all``) takes this rank's verdict on its trace and returns
+    whether every rank's held device time, so that all ranks make the same
+    calls."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(attempts):
@@ -151,6 +154,7 @@ def trace_ops(call, count: int, sync, hand: set, attempts: int = 3) -> Trace:
                     with record_function(READ_BACK):
                         sync(out)
         device_ops, host_ops, window = _collect(prof)
-        if window is not None and device_ops:
+        ok = window is not None and bool(device_ops)
+        if (ok if agree is None else agree(ok)):
             return Trace(count, window, device_ops, host_ops, hand)
     raise RuntimeError(f"{attempts} traces held no device time")
